@@ -3,7 +3,7 @@
 Round 4 measured the failure honestly: windows at W=3-5 with a K=3
 relay-1 deep-500 inner collapsed to 0.64 window convergence and LER
 0.22-0.31 vs joint 0.0035-0.014 — and the production-strength inner
-OOMed one v5e at bb144 width.  Round 5 re-attempts with the levers that
+ran out of device memory at bb144 width.  Round 5 re-attempts with the levers that
 change both terms:
 
   * the deep path is ~2x cheaper per iteration (argmin-free check

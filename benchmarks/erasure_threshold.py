@@ -1,6 +1,6 @@
 """Erasure-threshold sweep: peeling vs ML curves on a (2400, 6, 3) code.
 
-Regenerates benchmarks/results/erasure_threshold_r2.json (run on TPU).
+Regenerates benchmarks/results/erasure_threshold_r2.json.
 Theory: (3,6)-regular BEC peeling threshold 0.4294, ML 0.4882.
 """
 import sys

@@ -1,4 +1,4 @@
-"""Mixed erasure+flip channel sweep on a (2400, 6, 3) code (run on TPU).
+"""Mixed erasure+flip channel sweep on a (2400, 6, 3) code.
 
 Regenerates benchmarks/results/mixed_channel_r2.json: failure curves
 over erasure rate at two flip rates via harness.mixed_fer_sweep, plus

@@ -1,4 +1,4 @@
-"""Neural min-sum (+OSD) on the bivariate-bicycle "gross" code (TPU).
+"""Neural min-sum (+OSD) on the bivariate-bicycle "gross" code.
 
 Regenerates benchmarks/results/neural_bicycle_r2.json.  Trains the
 per-edge-weighted min-sum (models/neural.py, param_scope='edge') on the

@@ -1,4 +1,4 @@
-"""Neural per-edge BP on the toric code: logical error rates (run on TPU).
+"""Neural per-edge BP on the toric code: logical error rates.
 
 Regenerates benchmarks/results/neural_toric_r2.json.  Trains
 per-edge-weighted min-sum (models/neural.py, param_scope='edge') on the

@@ -4,7 +4,7 @@ Reference semantics run OSD post-processing on EVERY lane
 (belief_propagation_osd.jl); `osd_scope="failed"` keeps BP's own
 syndrome-consistent solution on converged lanes and routes only the
 failing lanes through the elimination — a large throughput win
-(osd_scope_r2.json) that the default quantum pipeline doesn't take
+(a round-2 throughput record) that the default quantum pipeline doesn't take
 because its accuracy cost was never measured.
 
 This script measures it PAIRED: identical detector records decoded

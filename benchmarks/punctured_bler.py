@@ -1,10 +1,9 @@
-"""Punctured QC-LDPC BLER waterfall on the fused Pallas kernel (run on TPU).
+"""Punctured QC-LDPC BLER waterfall through the QC decoder.
 
 Regenerates benchmarks/results/punctured_bler_r2.json: block error rate
 vs Eb/N0 for a rate-3/4 QC code under BPSK/AWGN, unpunctured vs with
 the first 2Z block columns punctured (never transmitted, LLR 0) — the
-5G rate-matching pattern, decoded entirely by the per-bit-prior fused
-kernel via decode_soft.
+5G rate-matching pattern, decoded with per-bit priors via decode_soft.
 """
 import sys
 sys.path.insert(0, ".")
@@ -56,7 +55,7 @@ for snr_db in (0.5, 1.0, 1.5, 2.0, 2.5, 3.0):
     print(snr_db, "full", row["full"]["bler"], "punct", row["punctured"]["bler"])
 
 out = {
-    "code": f"QC (nb=24, wr=6, wc=3, Z={Z}) n={n}, layered fused kernel",
+    "code": f"QC (nb=24, wr=6, wc=3, Z={Z}) n={n}, layered QC min-sum",
     "channel": "BPSK/AWGN, all-zero codeword",
     "puncture": "first 2Z block columns (LLR 0 at the receiver)",
     "batch": B,

@@ -1,10 +1,10 @@
 """bb144 space-time: QC-layered inner vs incumbent (VERDICT r4 item 5).
 
-Round 4 measured that the fused QC kernel hosts the bb144 space-time
+Round 4 measured that a QC whole-decode kernel (since removed) hosted the bb144 space-time
 blocks exactly and that the LAYERED schedule converges 100% of lanes in
 60 iterations where flooding leaves 0.5% to OSD — but the result sat
 unwired.  Round 5 wired it (`SpaceTimeDecoder.for_bicycle`, mixed
-per/q priors through the vector-prior kernel path); this script takes
+per/q priors as a vector prior); this script takes
 the done-bar measurement: the SAME sampled detector records decoded by
 
   * the incumbent inner (``decoder="bposd"`` on the space-time matrix,

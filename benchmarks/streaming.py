@@ -4,7 +4,7 @@ VERDICT r2 item 5: the real-time decoder's selling point was never
 measured.  Round 3 made `SlidingWindowDecoder.decode_stream` a device
 chain (carry/E/conv stay on device; windows enqueue without a host
 sync; one fetch at the end), bit-identical to the host loop (tested).
-This benchmark measures, on TPU:
+This benchmark measures, on the accelerator:
 
   * **bulk streaming throughput** — B parallel streams of R rounds,
     rounds/s = B*R / wall on the second (warm) call;

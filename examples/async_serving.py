@@ -3,8 +3,8 @@
 The fused decoder compiles BP and cond-gated OSD post-processing into
 ONE XLA program — no device->host synchronization per batch — so
 several batches can be queued in flight and decode at full device
-throughput (measured on TPU v5e, (1000,10,9), B=1024: 73.5k pipelined
-syndromes/s vs 24.8k for the default host-compacting path).
+throughput, where the default path compacts failing lanes on the host
+between batches.
 
 Run:  python examples/async_serving.py
 """

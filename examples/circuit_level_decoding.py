@@ -2,7 +2,7 @@
 
 Builds the rotated-surface-code memory experiment as an explicit
 syndrome-extraction circuit, extracts its EXACT detector error model by
-fault propagation, decodes shots drawn from the circuit itself on TPU,
+fault propagation, decodes shots drawn from the circuit itself on the device,
 and reports the logical error per round — the full sinter-style loop
 (sample -> decode -> compare observables) in ~30 lines.
 

@@ -1,8 +1,8 @@
-"""Punctured QC-LDPC decoding on the fused Pallas kernel (5G-style).
+"""Punctured QC-LDPC decoding through the QC decoder (5G-style).
 
 Production QC codes puncture columns at transmission (5G NR never sends
 the first 2Z systematic bits); the receiver simply has no channel
-information there.  With the kernel's per-bit prior input, punctured
+information there.  With the decoder's per-bit prior input, punctured
 positions decode as LLR 0 — no special casing, one compiled program.
 
 Run:  python examples/punctured_qc.py
@@ -15,8 +15,7 @@ import ldpcdecoders_tpu as lt
 Z = 128
 base = lt.random_qc_base_matrix(24, 6, 3, Z, rng=0)   # rate-3/4 QC code
 dec = lt.QCMinSumDecoder(base, Z, per=0.02, max_iters=60,
-                         schedule="layered",          # fused Pallas kernel
-                         backend="auto")              # (XLA off-TPU)
+                         schedule="layered")
 n = dec.n
 punctured = np.zeros(n, bool)
 punctured[: 2 * Z] = True                             # never transmitted

@@ -8,9 +8,9 @@ draws on survivors, and the native full-RREF OSD-CS on whatever is
 left.  Prints the logical error rate with the stage-by-stage profile
 (where the shots went, where the failures came from).
 
-Measured on bb144 R=6 (TPU v5e, benchmarks/results/
-circuit_level_bb144_r4.json): per-round LER 2.1e-5 at p=0.001 (163,840 shots) — 18x
-below the round-3 single-decoder curve on the same machinery lineage.
+Recorded on bb144 R=6 (benchmarks/results/circuit_level_bb144_r4.json):
+per-round LER 2.1e-5 at p=0.001 (163,840 shots) — 18x below the round-3
+single-decoder curve on the same machinery lineage.
 
 Run:  python examples/staged_production_decoding.py [--bb144]
 """

@@ -11,7 +11,7 @@ H = lt.parity_check_matrix(1000, 10, 9, rng=42)   # reference benchmark code
 per, T = 0.035, 10                                # few iterations: min-sum hurts
 
 dec = lt.NeuralMinSumDecoder(H, per, T)
-hist = dec.train(steps=200, batch=512, seed=0)    # ~2 min on one TPU chip
+hist = dec.train(steps=200, batch=512, seed=0)
 print(f"loss {hist['losses'][0]:.4f} -> {hist['losses'][-1]:.4f}")
 print("alpha schedule:", np.round(dec.alpha, 3))
 print("beta schedule: ", np.round(dec.beta, 3))

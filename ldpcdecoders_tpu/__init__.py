@@ -1,10 +1,10 @@
-"""ldpcdecoders_tpu — a TPU-native LDPC syndrome-decoding framework.
+"""ldpcdecoders_tpu — a batched LDPC syndrome-decoding framework.
 
 Brand-new JAX/XLA/Pallas implementation with the capabilities of
 QuantumSavory/LDPCDecoders.jl (reference surveyed in SURVEY.md): Gallager
 code construction, Tanner-graph compilation, and batched sum-product BP,
 BP+OSD, iterative bit-flip, and BP-OTS decoders, designed for SPMD
-execution over TPU device meshes.
+execution over GPU device meshes.
 """
 
 from .codes import (

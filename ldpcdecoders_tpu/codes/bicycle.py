@@ -7,7 +7,7 @@ threshold and low-overhead fault-tolerant quantum memory", Nature 627,
 778 (2024)) because it is the quasi-abelian cousin of the quasi-cyclic
 classical codes in codes/qc.py: every block of Hx/Hz is a sum of
 commuting 2-D circulant monomials, so the codes keep the regular,
-static-shift structure TPU kernels want while offering far better
+static-shift structure accelerator kernels want while offering far better
 encoding rates than surface codes.
 
 Construction

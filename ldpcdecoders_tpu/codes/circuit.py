@@ -24,7 +24,7 @@ decoder evaluation (decode circuit shots with DEM priors, compare
 predicted vs actual observable flips — the sinter interface).
 
 Everything here is host-side model *construction*; decoding stays on
-TPU through :class:`~..models.detector.DetectorGraphDecoder`.  The
+the device through :class:`~..models.detector.DetectorGraphDecoder`.  The
 propagation is vectorised over faults/shots (bool matrices ``[F, Q]``,
 one pass over the op list), so bb144 x 6 rounds (~90k elementary
 faults) extracts in seconds.

@@ -1,6 +1,6 @@
 """Tanner-graph compiler: sparse H -> fixed-shape padded edge lists.
 
-This is the TPU-native replacement for the reference's dual
+This is the batched replacement for the reference's dual
 CSC-sparse-matrix representation (sparse_H / sparse_HT,
 /root/reference/src/decoders/belief_propagation.jl:52-55) and its dense
 s x n message matrices (belief_propagation.jl:11-14).
@@ -79,8 +79,8 @@ class TannerGraph:
         """Gather indices + masks for the slot-major device layout.
 
         Device arrays are laid out ``[B, slot, node]`` so the large node
-        axis (m or n) occupies the TPU lane dimension (full 128-lane VPU
-        utilization) and degree reductions run across sublanes; the naive
+        axis (m or n) is the minor (contiguous) one and degree reductions
+        run across the small slot axis; the naive
         ``[B, node, slot]`` layout puts the tiny degree axis in lanes
         (~8% utilization — measured 1.75x slower end-to-end).
 
@@ -198,7 +198,7 @@ class TannerGraph:
             Sparse inputs route through :meth:`from_edges` and keep a dense
             H attached only when small enough for OSD/debug tools.
           degree_multiple: round padded degrees up to a multiple of this
-            (e.g. 8 to align the slot axis to TPU sublanes).
+            (e.g. 8 to align the slot axis to a vector width).
           use_native: force the C++ compiler on/off (default: auto — native
             for graphs with more than ~100k entries, where the Python loop
             becomes the bottleneck).

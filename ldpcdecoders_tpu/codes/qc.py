@@ -5,11 +5,10 @@ quasi-cyclic: H is an ``[mb, nb]`` grid of ``Z x Z`` blocks, each either
 zero or a cyclic-shift permutation matrix ``P^s``.  The reference package
 has no QC construction (its Gallager generator,
 /root/reference/src/parity_generator.jl:21-45, produces unstructured
-regular codes); we add the family because the circulant structure is the
-one case where a *fully VMEM-resident* TPU decode kernel is expressible
-today: the Tanner-graph cross-layout permutation degenerates to static
-cyclic shifts along the lift dimension, which Mosaic supports natively
-(``pltpu.roll``) — no arbitrary gather required.
+regular codes); we add the family because production codes use it, and
+because its Tanner-graph cross-layout permutation degenerates to static
+cyclic shifts along the lift dimension — a structure a whole-decode
+kernel could exploit without arbitrary gathers.
 
 Conventions
 -----------

@@ -17,7 +17,8 @@ data errors plus every round's measurement errors.  That graph is just
 another (sparse) parity-check matrix, so the whole existing batched
 BP / BP+OSD machinery applies unchanged — one XLA program decodes all
 ``R`` rounds of a batch of shots at once, which is exactly the layout
-TPUs want (the batch and the round axis both fold into the lane grid).
+batched kernels want (the batch and the round axis both fold into one
+wide axis).
 
 This module builds that matrix.  Layout of the ``A`` columns::
 

@@ -2,7 +2,7 @@
 
 The reference configures decoders purely through constructor arguments;
 this module adds a serializable frozen dataclass carrying the same knobs
-plus the TPU-specific ones, so services and sweep jobs can persist and
+plus this framework's own, so services and sweep jobs can persist and
 rebuild decoders from JSON.
 """
 
@@ -35,7 +35,7 @@ _KINDS = (
 #: decoder-specific knobs forwarded from a wrapper kind's config to its
 #: inner decoder's DecoderConfig
 _INNER_KNOBS = ("osd_order", "T", "C", "alpha", "beta", "scale", "beta_q",
-                "use_pallas", "fused", "osd_scope", "osd_method",
+                "fused", "osd_scope", "osd_method",
                 "osd_impl", "inner", "damping")
 
 
@@ -61,9 +61,6 @@ class DecoderConfig:
     beta: float = 0.0
     scale: float = 4.0
     beta_q: int = 1
-    # None = each decoder's own default (bposd: auto — on for TPU
-    # backends; minsum: off).  An explicit bool is forwarded as-is.
-    use_pallas: bool | None = None
     #: BP+OSD only: compile BP + cond-gated OSD into one device program
     fused: bool = False
     #: BP+OSD only: "all" (reference semantics) or "failed" (OSD-w on
@@ -72,7 +69,7 @@ class DecoderConfig:
     #: BP+OSD only: "exhaustive" (reference 2^w sweep) or
     #: "combination_sweep" (OSD-CS: singles + pairs within osd_order)
     osd_method: str = "exhaustive"
-    #: BP+OSD only: "device" (XLA/Pallas elimination) or "host" (the
+    #: BP+OSD only: "device" (XLA or Pallas elimination) or "host" (the
     #: threaded C++ column-reduction eliminator — for detector models
     #: too wide for the device paths; OSD-0, untraceable)
     osd_impl: str = "device"
@@ -83,12 +80,7 @@ class DecoderConfig:
     inner: str | None = None
     #: minsum family: message damping in [0, 1) (loopy-graph stabilizer)
     damping: float = 0.0
-    #: qc_minsum only: 'auto' (fused Pallas kernel on TPU, XLA edge-list
-    #: elsewhere), 'pallas', or 'xla'
-    backend: str = "auto"
-    #: qc_minsum only: Pallas batch-tile size (None = auto-fit to VMEM)
-    batch_tile: int | None = None
-    #: qc_minsum only: 'flooding' or 'layered' (serial-C over base rows)
+    #: qc_minsum only: 'flooding' or 'layered' (conflict-free check layers)
     schedule: str = "flooding"
     #: qc_minsum only: 'minsum' or 'sumproduct' (exact tanh-rule BP)
     algorithm: str = "minsum"
@@ -248,15 +240,9 @@ class DecoderConfig:
                     "not a lifted parity-check matrix"
                 )
             base, Z = H
-            backend = self.backend
-            if backend == "auto":
-                import jax
-
-                backend = "pallas" if jax.devices()[0].platform == "tpu" else "xla"
             return lt.QCMinSumDecoder(
                 base, Z, self.per, self.max_iters,
-                alpha=self.alpha, beta=self.beta, backend=backend,
-                batch_tile=self.batch_tile, schedule=self.schedule,
+                alpha=self.alpha, beta=self.beta, schedule=self.schedule,
                 algorithm=self.algorithm,
             )
         if k == "bp":
@@ -266,7 +252,7 @@ class DecoderConfig:
                 H, self.per, self.max_iters, osd_order=self.osd_order,
                 fused=self.fused, osd_scope=self.osd_scope,
                 osd_method=self.osd_method, osd_impl=self.osd_impl,
-                use_pallas=self.use_pallas, inner=self.inner,
+                inner=self.inner,
                 damping=self.damping,
             )
         if k == "bitflip":
@@ -278,7 +264,6 @@ class DecoderConfig:
                 H, self.per, self.max_iters, damping=self.damping,
                 alpha=1.0 if self.alpha is None else self.alpha,
                 beta=self.beta,
-                use_pallas=bool(self.use_pallas),
             )
         if k == "minsum_int8":
             return lt.QuantizedMinSumDecoder(

@@ -1,4 +1,4 @@
-"""Pure-NumPy golden decoders — behavioral oracles for the TPU kernels.
+"""Pure-NumPy golden decoders — behavioral oracles for the batched decoders.
 
 These transcribe the reference algorithms' *semantics* (SURVEY.md §2.2-2.5)
 into single-syndrome, readable NumPy.  They exist only to validate the
@@ -6,6 +6,8 @@ batched JAX/Pallas implementations (exact outputs on small cases, FER parity
 on statistical cases); they are never on any production path.
 
 Reference behavior cites:
+  * min-sum (not in the reference; this package's production decoder)
+    in its plain flooding form, as in Chen & Fossorier 2002
   * BP sum-product, probability-ratio domain with serial prefix/suffix
     exclusive products and NaN guards:
     /root/reference/src/decoders/belief_propagation.jl:121-188
@@ -23,6 +25,7 @@ import numpy as np
 
 __all__ = [
     "bp_decode",
+    "minsum_decode",
     "osd_postprocess",
     "bitflip_decode",
     "bpots_decode",
@@ -85,6 +88,47 @@ def bp_decode(H, syndrome, per, max_iters, dtype=np.float64):
             break
 
     return err, converged, log_probabs, iters
+
+
+def minsum_decode(H, syndrome, per, max_iters, alpha=1.0, beta=0.0,
+                  dtype=np.float32):
+    """Flooding normalized/offset min-sum in the LLR domain.
+
+    ``per`` is a scalar or an ``[n]`` vector of channel error rates.  The
+    check rule takes, for each edge, the least magnitude over the check's
+    other edges, scaled by ``alpha`` less ``beta`` (clamped at 0), signed
+    by the parity of the other edges and the syndrome bit.  Stops at the
+    first iteration whose hard decisions reproduce the syndrome.
+
+    Returns (err[n] int8, converged, llrs[n], iters).
+    """
+    H = np.asarray(H, dtype=np.uint8)
+    syndrome = np.asarray(syndrome).astype(np.int64)
+    m, n = H.shape
+    per = np.broadcast_to(np.asarray(per, np.float64), (n,))
+    L0 = np.log((1.0 - per) / per).astype(dtype)
+    chk_nbrs = [np.flatnonzero(H[i]) for i in range(m)]
+    alpha, beta = dtype(alpha), dtype(beta)
+    v2c = np.where(H.astype(bool), L0[None, :], dtype(0)).astype(dtype)
+    err = np.zeros(n, np.int8)
+    llrs = L0.copy()
+    for it in range(max_iters):
+        c2v = np.zeros((m, n), dtype)
+        for i, nb in enumerate(chk_nbrs):
+            msgs = v2c[i, nb]
+            mag, neg = np.abs(msgs), msgs < 0
+            parity = (neg.sum() + syndrome[i]) % 2
+            for k, j in enumerate(nb):
+                # a lone edge sees the decoders' "no other edge" sentinel
+                excl = np.min(np.delete(mag, k)) if nb.size > 1 else dtype(1e30)
+                out = max(alpha * excl - beta, dtype(0))
+                c2v[i, j] = -out if (parity ^ neg[k]) else out
+        llrs = (L0 + c2v.sum(axis=0, dtype=dtype)).astype(dtype)
+        v2c = np.where(H.astype(bool), llrs[None, :] - c2v, dtype(0)).astype(dtype)
+        err = (llrs < 0).astype(np.int8)
+        if np.array_equal((H.astype(np.int64) @ err) % 2, syndrome):
+            return err, True, llrs, it + 1
+    return err, False, llrs, max_iters
 
 
 def _osd0(H, bp_err, s_target):

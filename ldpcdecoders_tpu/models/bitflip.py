@@ -1,6 +1,6 @@
 """Batched hard-decision iterative bit-flip decoder.
 
-TPU-native re-design of the reference's Gallager-B-style decoder
+Batched re-design of the reference's Gallager-B-style decoder
 (/root/reference/src/decoders/iterative_bitflip.jl:116-157):
 
   * the per-check vote scatter loops become one MXU matmul per iteration:

@@ -1,6 +1,6 @@
 """Batched sum-product belief-propagation decoder (flagship model).
 
-TPU-native re-design of the reference's probability-ratio-domain BP
+Batched re-design of the reference's probability-ratio-domain BP
 (/root/reference/src/decoders/belief_propagation.jl:121-188):
 
   * the reference's serial per-node prefix/suffix products become
@@ -50,7 +50,7 @@ def make_bp_decode_fn(graph: TannerGraph, per: float, max_iters: int, dtype=jnp.
     """
     m, n = graph.m, graph.n
     max_dc, max_dv = graph.max_dc, graph.max_dv
-    # slot-major layout [B, slot, node]: large node axis in TPU lanes
+    # slot-major layout [B, slot, node]: the large node axis is minor
     c2v_t, v2c_t, chk_mask_t, var_mask_t = graph.slot_major()
     c2v = jnp.asarray(c2v_t)
     v2c = jnp.asarray(v2c_t)
@@ -143,7 +143,7 @@ class BeliefPropagationDecoder(Decoder):
       per: physical error rate (channel crossover probability).
       max_iters: maximum BP iterations.
       dtype: message dtype (float32 default; the reference uses float64 on
-        CPU, but FER behavior is dtype-robust and f32 is TPU-native).
+        CPU, but FER behavior is dtype-robust and f32 is native on accelerators).
 
     Example — correct a single bit error on the length-3 repetition code:
 

@@ -1,6 +1,6 @@
 """Batched BP + Ordered-Statistics-Decoding (OSD) decoder.
 
-TPU-native re-design of the reference's BP-OSD
+Batched re-design of the reference's BP-OSD
 (/root/reference/src/decoders/belief_propagation_osd.jl:49-209):
 
   * inner BP is the batched flagship decoder (models/bp.py), whose soft
@@ -11,7 +11,7 @@ TPU-native re-design of the reference's BP-OSD
   * OSD-0 runs **only on the lanes whose BP output is syndrome-
     inconsistent** — host orchestration gathers failing lanes into a
     power-of-two bucket, decodes them, and scatters back.  This is the
-    TPU analog of the reference's early-return fast path
+    batched analog of the reference's early-return fast path
     (belief_propagation_osd.jl:66-74) and keeps the expensive elimination
     off the >99% of lanes where BP converges;
   * OSD-w (w>0) runs on every lane, matching the reference's semantics
@@ -30,7 +30,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..codes.graph import TannerGraph
-from ..ops.gf2 import gf2_osd0, gf2_osdw, osdw_sweep, pack_bits
+from ..ops.gf2 import gf2_osd0, gf2_osdw, osdw_sweep
+from ..ops.pallas_gf2 import fits_block, gf2_eliminate_pallas, gf2_osd0_pallas
 from .base import Decoder
 from .bp import make_bp_decode_fn
 from .priors import next_pow2, per_to_llr
@@ -124,17 +125,20 @@ def make_osd_fns(
     graph: TannerGraph,
     osd_order: int,
     *,
-    use_pallas: bool = False,
     osd_method: str = "exhaustive",
+    kernel: bool | None = None,
 ):
     """Build jitted batched OSD-0 / OSD-w post-processors.
 
     Each takes ``(syndromes [B,m], bp_err [B,n], log_probabs [B,n])`` in
     *unsorted* column order and returns the ``[B, n]`` corrected error.
 
-    With ``use_pallas=True`` the OSD-w Gauss–Jordan elimination runs in
-    the VMEM-resident Pallas kernel (ops/pallas_gf2.py) instead of the
-    XLA ``while_loop`` — identical outputs, far less HBM traffic.
+    The Gauss–Jordan elimination runs in the Pallas kernel
+    (ops/pallas_gf2.py) on a CUDA device when one lane's packed matrix
+    fits its block (``kernel=None``, the default), and in the XLA
+    ``while_loop`` form (ops/gf2.py) otherwise; both give identical
+    outputs.  ``kernel=False`` forces the XLA form and ``kernel=True``
+    the kernel on every platform (reference comparisons and tests).
 
     ``osd_method="combination_sweep"`` replaces the exhaustive 2^w
     candidate sweep with OSD-CS (ops/gf2.py::osd_cs_sweep): all single
@@ -208,8 +212,6 @@ def make_osd_fns(
         return unsort(perm, corr)
 
     def osdw_batch_pallas(syndromes, bp_errs, logps):
-        from ..ops.pallas_gf2 import gf2_eliminate_pallas
-
         perm, Hp, bp_sorted = jax.vmap(sort_and_pack)(syndromes, bp_errs, logps)
         Ht2, s2, piv = gf2_eliminate_pallas(
             jnp.transpose(Hp, (0, 2, 1)), syndromes.astype(jnp.uint32), n
@@ -219,10 +221,9 @@ def make_osd_fns(
         return jax.vmap(unsort)(perm, corr)
 
     def osd0_batch_pallas(syndromes, bp_errs, logps):
-        from ..ops.pallas_gf2 import gf2_osd0_pallas
-
         perm, Hp, bp_sorted = jax.vmap(sort_and_pack)(syndromes, bp_errs, logps)
-        # residual via one MXU matmul (row sums are small ints: exact in f32)
+        # residual via one matmul (row sums are small ints: exact in f32
+        # and in TF32, whose 10-bit mantissa holds the 0/1 operands)
         hb = jnp.dot(
             bp_errs.astype(jnp.float32),
             H_cols.astype(jnp.float32),
@@ -232,9 +233,21 @@ def make_osd_fns(
         corr = gf2_osd0_pallas(jnp.transpose(Hp, (0, 2, 1)), resid, bp_sorted, n)
         return jax.vmap(unsort)(perm, corr)
 
-    osd0_batch = osd0_batch_pallas if use_pallas else jax.vmap(osd0_lane)
-    osdw_batch = osdw_batch_pallas if use_pallas else jax.vmap(osdw_lane)
-    return osd0_batch, osdw_batch
+    osd0_xla, osdw_xla = jax.vmap(osd0_lane), jax.vmap(osdw_lane)
+    if kernel is None:
+        if not fits_block(n, m):
+            return osd0_xla, osdw_xla
+        # the kernel is Triton code: CUDA lowers it, other platforms take
+        # the XLA form of the same elimination
+        return (
+            lambda *a: jax.lax.platform_dependent(
+                *a, cuda=osd0_batch_pallas, default=osd0_xla),
+            lambda *a: jax.lax.platform_dependent(
+                *a, cuda=osdw_batch_pallas, default=osdw_xla),
+        )
+    if kernel:
+        return osd0_batch_pallas, osdw_batch_pallas
+    return osd0_xla, osdw_xla
 
 
 def make_fused_bposd_fn(
@@ -243,11 +256,11 @@ def make_fused_bposd_fn(
     max_iters: int,
     osd_order: int,
     *,
-    use_pallas: bool = False,
     osd_scope: str = "all",
     inner=None,
     osd_method: str = "exhaustive",
     damping: float = 0.0,
+    kernel: bool | None = None,
 ):
     """Build ONE jittable program: BP + ``lax.cond``-gated OSD post-processing.
 
@@ -269,7 +282,7 @@ def make_fused_bposd_fn(
     """
     bp_fn, _ = _make_inner(graph, per, max_iters, inner, damping=damping)
     osd0_batch, osdw_batch = make_osd_fns(
-        graph, osd_order, use_pallas=use_pallas, osd_method=osd_method
+        graph, osd_order, osd_method=osd_method, kernel=kernel
     )
 
     if osd_order > 0 and osd_scope == "all":
@@ -307,13 +320,6 @@ class BeliefPropagationOSDDecoder(Decoder):
       per: physical error rate.
       max_iters: maximum BP iterations.
       osd_order: OSD order w (default 0); the sweep scales as 2^w.
-      use_pallas: run the OSD eliminations in the VMEM-resident Pallas
-        kernels (default: auto — on for TPU backends; off elsewhere).
-        Measured on TPU v5e, (1000,10,9) code, B=1024: osd_order=2 at
-        per=0.01 reaches 4,206 syndromes/s vs 1,256 for the XLA
-        while_loop form (3.3x; 9x over the round-1 swap-based
-        elimination); OSD-0 at per=0.2 (every lane BP-failing) reaches
-        3,304 vs 767 (4.3x).
       fused: compile BP + OSD into ONE device program with the OSD-0
         elimination gated behind ``lax.cond(all(converged))`` instead of
         host-side failing-lane compaction.  No device->host sync, so
@@ -364,7 +370,6 @@ class BeliefPropagationOSDDecoder(Decoder):
         max_iters: int,
         *,
         osd_order: int = 0,
-        use_pallas: bool | None = None,
         fused: bool = False,
         osd_scope: str = "all",
         inner=None,
@@ -384,18 +389,6 @@ class BeliefPropagationOSDDecoder(Decoder):
             )
         self.graph = H if isinstance(H, TannerGraph) else TannerGraph.from_pcm(H)
         self.m, self.n = self.graph.m, self.graph.n
-        if use_pallas is None:
-            # the VMEM-resident elimination kernel holds a lane's whole
-            # packed matrix ([W, m_pad] uint32, double-buffered in and
-            # out) on the ~16 MB VMEM stack; past ~3 MB/lane (e.g. the
-            # 864 x 31,648 bb144 circuit-level DEM at 3.5 MB) Mosaic
-            # OOMs at compile, so auto-selection falls back to the XLA
-            # path there.  An explicit use_pallas=True is honored as-is.
-            words = (self.n + 31) // 32
-            m_pad = ((self.m + 127) // 128) * 128
-            fits_vmem = words * m_pad * 4 <= 3 * 2**20
-            use_pallas = (jax.default_backend() not in ("cpu", "gpu")
-                          and fits_vmem)
         self.per = float(per)
         self.max_iters = int(max_iters)
         if osd_order < 0:
@@ -419,7 +412,9 @@ class BeliefPropagationOSDDecoder(Decoder):
         else:
             self.graph.require_H()  # OSD always needs dense rows
         self.osd_order = int(osd_order)
-        self.use_pallas = bool(use_pallas)
+        # whether the device OSD elimination compiles the Pallas kernel
+        # on a CUDA device (ops/pallas_gf2.py::fits_block)
+        self.osd_kernel = fits_block(self.n, self.m)
         self.fused = bool(fused)
         self.osd_scope = osd_scope
         self.inner = inner
@@ -439,7 +434,7 @@ class BeliefPropagationOSDDecoder(Decoder):
             # (native/gf2_osd.cpp): golden-identical to the device OSD-0
             # given the same column order, and the only working path for
             # detector models too wide for the device elimination (the
-            # 864 x 31,648 bb144 circuit DEM — docs/ROADMAP.md).  BP
+            # 864 x 31,648 bb144 circuit DEM).  BP
             # stays on device; failing lanes round-trip to host, so the
             # program is untraceable (no fused mode).
             from ..native import gf2_pack_cols, native_available
@@ -464,7 +459,6 @@ class BeliefPropagationOSDDecoder(Decoder):
                     self.per,
                     self.max_iters,
                     self.osd_order,
-                    use_pallas=self.use_pallas,
                     osd_scope=self.osd_scope,
                     inner=inner,
                     osd_method=self.osd_method,
@@ -481,7 +475,6 @@ class BeliefPropagationOSDDecoder(Decoder):
             osd0, osdw = make_osd_fns(
                 self.graph,
                 self.osd_order,
-                use_pallas=self.use_pallas,
                 osd_method=self.osd_method,
             )
             self._osd0_batch, self._osdw_batch = jax.jit(osd0), jax.jit(osdw)

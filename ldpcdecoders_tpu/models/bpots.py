@@ -1,6 +1,6 @@
 """Batched BP decoder with Ordered-Trapping-Set (OTS) biasing.
 
-TPU-native re-design of the reference's LLR-domain BP-OTS
+Batched re-design of the reference's LLR-domain BP-OTS
 (/root/reference/src/decoders/bpots_decoder.jl:226-340, Chytas et al.
 style):
 
@@ -74,7 +74,7 @@ def make_bpots_decode_fn(
     """
     m, n = graph.m, graph.n
     max_dc, max_dv = graph.max_dc, graph.max_dv
-    # slot-major layout [B, slot, node]: large node axis in TPU lanes
+    # slot-major layout [B, slot, node]: the large node axis is minor
     c2v_t, v2c_t, chk_mask_t, var_mask_t = graph.slot_major()
     c2v = jnp.asarray(c2v_t)
     v2c = jnp.asarray(v2c_t)

@@ -5,7 +5,7 @@ phenomenological model; real experiments usually come with one already
 — a detector error model (DEM) extracted from the actual syndrome
 circuit, where each independent error mechanism flips a known set of
 detectors and logical observables.  :class:`DetectorGraphDecoder`
-decodes any such model through the existing batched TPU machinery:
+decodes any such model through the existing batched decoders:
 
   * the mechanisms' detector footprints form a sparse parity-check
     matrix ``A [D, N]`` (one column per mechanism);
@@ -214,7 +214,7 @@ def load_dem(text_or_path):
 
 
 class DetectorGraphDecoder(Decoder):
-    """Decode arbitrary detector error models on TPU.
+    """Decode arbitrary detector error models on the device.
 
     Args:
       A: ``[D, N]`` detector matrix — ``A[d, j] = 1`` iff mechanism

@@ -23,8 +23,8 @@ the same code (different alpha/schedules/inners — even different
 families) runs K sequential member decodes plus a host selection pass.
 
 No reference analog: the reference runs one decoder per call
-(/root/reference/src/decoders/abstract_decoder.jl:31-48); this is the
-TPU-era accuracy tier built on top of that same contract.
+(/root/reference/src/decoders/abstract_decoder.jl:31-48); this is an
+accuracy tier built on top of that same contract.
 """
 
 from __future__ import annotations
@@ -116,14 +116,14 @@ class EnsembleDecoder(Decoder):
         if len(ms) < 2 or not all(type(d) is MinSumDecoder for d in ms):
             return None
         d0 = ms[0]
-        if d0._use_pallas or np.ndim(d0.alpha) or np.ndim(d0.beta):
+        if np.ndim(d0.per) or np.ndim(d0.alpha) or np.ndim(d0.beta):
             return None
         for d in ms[1:]:
             if d.graph is not d0.graph and not (
                     d.graph.H is not None and d0.graph.H is not None
                     and np.array_equal(d.graph.H, d0.graph.H)):
                 return None
-            if (d._use_pallas or np.ndim(d.per) or d.per != d0.per
+            if (np.ndim(d.per) or d.per != d0.per
                     or d.max_iters != d0.max_iters or d.alpha != d0.alpha
                     or d.beta != d0.beta or d.dtype != d0.dtype
                     or d.check_every != d0.check_every):
@@ -152,8 +152,11 @@ class EnsembleDecoder(Decoder):
 
         def fused(syn_t, L0, gam):
             err, conv, iters, _ = raw(syn_t, L0, gam)
+            # HIGHEST: TF32 rounding of the log-prior weights could flip
+            # a near-tie pick against the sequential loop
             score = jnp.dot(err.astype(jnp.float32), w_d,
-                            preferred_element_type=jnp.float32)
+                            preferred_element_type=jnp.float32,
+                            precision=jax.lax.Precision.HIGHEST)
             score = jnp.where(conv, score, jnp.inf).reshape(K, B)
             pick = jnp.argmin(score, axis=0)  # first-min ties, like the loop
             any_ok = jnp.any(conv.reshape(K, B), axis=0)

@@ -6,7 +6,7 @@ seeing the LLR totals updated by the groups before it.  This classic
 schedule converges in roughly half the iterations at the same FER —
 every serious production LDPC decoder ships it.
 
-TPU mapping: checks are partitioned host-side into conflict-free layers
+Device mapping: checks are partitioned host-side into conflict-free layers
 (no variable touched twice within a layer — Gallager block structure
 gives exactly ``wc`` natural layers; general graphs use a greedy
 partition, padded to equal size).  Per layer the update is:

@@ -4,7 +4,7 @@ The reference ships only probability-ratio sum-product BP; SURVEY.md §7.3
 calls for an additional numerically-robust LLR-domain decoder for
 production throughput.  Min-sum replaces the check node's tanh/ratio
 products with a sign-parity + two-minimum reduction — no transcendentals,
-no NaN guards — which maps perfectly onto the TPU VPU and loses only
+no NaN guards — which maps onto plain elementwise vector code and loses only
 ~0.1-0.2 dB vs sum-product (recoverable with the normalization factor
 alpha, Chen & Fossorier 2002).
 
@@ -35,8 +35,6 @@ def make_minsum_decode_fn(
     alpha: float = 1.0,
     beta: float = 0.0,
     dtype=jnp.float32,
-    use_pallas: bool = False,
-    pallas_interpret: bool = False,
     edge_weights=None,
     damping: float = 0.0,
     check_every: int = 1,
@@ -69,10 +67,6 @@ def make_minsum_decode_fn(
     iteration) — convergence claims are unchanged, iteration counts are
     rounded up to the check grid.
 
-    With ``use_pallas=True`` the check/var updates run as fused Pallas
-    kernels (ops/pallas_minsum.py); the cross-layout gathers remain XLA
-    ops either way.
-
     ``edge_weights`` optionally applies trained per-edge message weights
     ``[max_iters, max_dv, n]`` (var-slot layout) in the variable update —
     the Nachmani-style weighted min-sum models/neural.py trains.
@@ -91,7 +85,7 @@ def make_minsum_decode_fn(
         254k vs 380k on bb144) this also shrinks the loop-carried
         state ~33%.  Bit-identical outputs (same per-edge arithmetic
         and reduction orders; asserted in tests/test_minsum.py).
-        Unsupported with use_pallas/edge_weights/per-iteration alpha.
+        Unsupported with edge_weights/per-iteration alpha.
 
     ``track_best`` keeps, per lane, the hard decision and LLRs of the
     iterate with the FEWEST syndrome mismatches seen at any check (the
@@ -108,22 +102,18 @@ def make_minsum_decode_fn(
     """
     m, n = graph.m, graph.n
     max_dc, max_dv = graph.max_dc, graph.max_dv
-    # slot-major layout [B, slot, node]: large node axis in TPU lanes
+    # slot-major layout [B, slot, node]: the large node axis is minor
     c2v_t, v2c_t, chk_mask_t, var_mask_t = graph.slot_major()
     c2v = jnp.asarray(c2v_t)
     v2c = jnp.asarray(v2c_t)
     chk_mask = jnp.asarray(chk_mask_t)  # [max_dc, m]
     var_mask = jnp.asarray(var_mask_t)  # [max_dv, n]
     syndrome_from = make_syndrome_fn(graph)
-    if np.ndim(per) and use_pallas:
-        raise ValueError("use_pallas currently requires a scalar per")
     default_L0 = jnp.asarray(per_to_llr(per, n), dtype)
     # alpha/beta may be scalars or per-iteration [max_iters] arrays (the
     # neural min-sum decoder trains one pair per iteration — models/neural.py)
     per_iter_ab = np.ndim(alpha) or np.ndim(beta)
     if per_iter_ab:
-        if use_pallas:
-            raise ValueError("use_pallas requires scalar alpha/beta")
         alphas = jnp.asarray(np.broadcast_to(alpha, (max_iters,)), dtype)
         betas = jnp.asarray(np.broadcast_to(beta, (max_iters,)), dtype)
         alpha = dtype(1.0)  # placeholders; body passes the per-iter values
@@ -132,16 +122,12 @@ def make_minsum_decode_fn(
         alpha = dtype(alpha)
         beta = dtype(beta)
     if edge_weights is not None:
-        if use_pallas:
-            raise ValueError("use_pallas does not support edge_weights")
         edge_weights = jnp.asarray(edge_weights, dtype)
         if edge_weights.shape != (max_iters, max_dv, n):
             raise ValueError(
                 f"edge_weights must be [{max_iters}, {max_dv}, {n}], "
                 f"got {edge_weights.shape}"
             )
-    if (damping or lane_damping) and use_pallas:
-        raise ValueError("use_pallas does not support damping")
     if not 0.0 <= float(damping) < 1.0:
         raise ValueError(f"damping must be in [0, 1), got {damping}")
     if lane_damping and damping:
@@ -152,11 +138,9 @@ def make_minsum_decode_fn(
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     if layout not in ("var", "check"):
         raise ValueError(f"layout must be 'var' or 'check', got {layout!r}")
-    if layout == "check" and (use_pallas or edge_weights is not None
-                              or per_iter_ab):
-        raise ValueError("layout='check' supports the plain jnp decode "
-                         "path only (no pallas/edge_weights/per-iter "
-                         "alpha)")
+    if layout == "check" and (edge_weights is not None or per_iter_ab):
+        raise ValueError("layout='check' supports the plain decode path "
+                         "only (no edge_weights/per-iter alpha)")
     gam = dtype(damping)
     big = dtype(1e30)
     # var index per check slot — the same array the dense-free syndrome
@@ -252,35 +236,12 @@ def make_minsum_decode_fn(
         nu = total[:, None, :] - Mg
         return nu, total
 
-    if use_pallas:
-        from ..ops.pallas_minsum import check_update_pallas, var_update_pallas
-
-        def check_update(nu_flat, syn_flip):  # noqa: F811
-            B = nu_flat.shape[0]
-            Ng = jnp.take(nu_flat, c2v, axis=1).reshape(B, max_dc, m)
-            return check_update_pallas(
-                Ng, syn_flip, chk_mask, alpha=float(alpha), beta=float(beta),
-                interpret=pallas_interpret,
-            )
-
-        def var_update(mu, L0):  # noqa: F811
-            del L0  # the Pallas path bakes the scalar prior
-            B = mu.shape[0]
-            Mg = jnp.take(mu.reshape(B, max_dc * m), v2c, axis=1).reshape(B, max_dv, n)
-            return var_update_pallas(
-                Mg, var_mask, L0=float(default_L0), interpret=pallas_interpret
-            )
-
     def decode(syndromes, L0=None, gamma=None):
         if lane_damping:
             if gamma is None:
                 raise ValueError("lane_damping decoders take a [B] gamma")
         elif gamma is not None:
             raise ValueError("gamma requires lane_damping=True")
-        if L0 is not None and use_pallas:
-            # the Pallas var kernel bakes the scalar prior; silently
-            # decoding with the wrong prior would corrupt FER sweeps
-            raise ValueError("use_pallas decoders do not support prior overrides")
         if L0 is None:
             L0 = default_L0
         L0 = jnp.asarray(L0, dtype)
@@ -482,7 +443,7 @@ def make_minsum_decode_fn(
 
 
 class MinSumDecoder(Decoder):
-    """Normalized/offset min-sum decoder (LLR domain, TPU production path).
+    """Normalized/offset min-sum decoder (LLR domain, production path).
 
     Args:
       H: ``[m, n]`` parity-check matrix.
@@ -498,8 +459,8 @@ class MinSumDecoder(Decoder):
         iteration instead of every iteration (see
         :func:`make_minsum_decode_fn`) — a throughput knob for wide
         detector models at deep iteration counts.
-      dtype: message dtype — jnp.bfloat16 is the fastest variant measured
-        (3.2e10 edge-iterations/s on v5e vs 2.3e10 f32 / 2.8e10 int8).
+      dtype: message dtype, jnp.float32 (default) or jnp.bfloat16 (half
+        the message bytes).
       layout: message residency, "var" (default) or "check" — see
         :func:`make_minsum_decode_fn`; decode-equivalent, not bitwise.
 
@@ -522,7 +483,6 @@ class MinSumDecoder(Decoder):
         alpha: float = 1.0,
         beta: float = 0.0,
         dtype=jnp.float32,
-        use_pallas: bool = False,
         damping: float = 0.0,
         check_every: int = 1,
         layout: str = "var",
@@ -536,9 +496,6 @@ class MinSumDecoder(Decoder):
         self.damping = float(damping)
         self.check_every = int(check_every)
         self.layout = str(layout)
-        self._use_pallas = bool(use_pallas)
-        if use_pallas:
-            self.supports_per_override = False  # kernels bake the prior
         self.dtype = dtype
         self._decode_fn = jax.jit(
             make_minsum_decode_fn(
@@ -548,7 +505,6 @@ class MinSumDecoder(Decoder):
                 alpha=self.alpha,
                 beta=self.beta,
                 dtype=dtype,
-                use_pallas=use_pallas,
                 damping=self.damping,
                 check_every=self.check_every,
                 layout=self.layout,
@@ -558,11 +514,6 @@ class MinSumDecoder(Decoder):
     def _decode_batch(self, syndromes, seed: int = 0, per=None):
         L0 = None
         if per is not None:
-            if self._use_pallas:
-                raise ValueError(
-                    "use_pallas decoders bake the channel prior; per-call "
-                    "overrides are not supported"
-                )
             L0 = jnp.asarray(per_to_llr(per, self.n), jnp.float32)
         err, converged, iters, llrs = self._decode_fn(jnp.asarray(syndromes), L0)
         return err, converged, iters, {"llrs": llrs}

@@ -1,9 +1,8 @@
 """Int8-quantized min-sum decoder — the bandwidth-optimal throughput path.
 
-BP decoding on TPU is HBM-bandwidth-bound: per iteration the edge-message
+BP decoding is memory-bandwidth-bound: per iteration the edge-message
 arrays are read and written a small constant number of times, so bytes
-per message set the throughput ceiling (measured: f32 5.6e9 ->
-bf16 8.5e9 edge-iters/s on v5e).  Hardware LDPC decoders have used 6-8
+per message set the throughput ceiling.  Hardware LDPC decoders have used 6-8
 bit min-sum messages for two decades with negligible FER loss; this
 decoder stores messages as int8 fixed-point LLRs (configurable
 ``scale`` = LSBs per LLR unit), quartering HBM traffic vs f32.
@@ -51,7 +50,7 @@ def make_minsum_q_decode_fn(
     """
     m, n = graph.m, graph.n
     max_dc, max_dv = graph.max_dc, graph.max_dv
-    # slot-major layout [B, slot, node]: large node axis in TPU lanes
+    # slot-major layout [B, slot, node]: the large node axis is minor
     c2v_t, v2c_t, chk_mask_t, var_mask_t = graph.slot_major()
     c2v = jnp.asarray(c2v_t)
     v2c = jnp.asarray(v2c_t)

@@ -3,8 +3,8 @@
 The two canonical LDPC channels compose in real hardware: a fraction of
 bits arrive *erased* (known location, unknown value — photon loss,
 atom loss, heralded leakage) while the rest see ordinary bit-flips.
-The reference package handles only the flip channel; this decoder is a
-TPU-native addition layered on two pieces that already exist here:
+The reference package handles only the flip channel; this decoder is an
+addition layered on two pieces that already exist here:
 
 1. **Parallel leaf peeling** (models/peeling.py): on lanes whose
    syndrome is explained entirely inside the erasure, peeling resolves
@@ -68,7 +68,6 @@ def make_mixed_decode_fn(
     dtype=jnp.float32,
     max_rounds: int | None = None,
     osd_order: int | None = None,
-    use_pallas_osd: bool = False,
 ):
     """Build ``(syndromes [B, m], erasures [B, n], prior [B, n]) ->
     (err i8, ok, peel_rounds, bp_iters)``.
@@ -101,9 +100,7 @@ def make_mixed_decode_fn(
     if osd_order is not None:
         from .bposd import make_osd_fns
 
-        osd0_batch, osdw_batch = make_osd_fns(
-            graph, int(osd_order), use_pallas=use_pallas_osd
-        )
+        osd0_batch, osdw_batch = make_osd_fns(graph, int(osd_order))
         osd_post = osd0_batch if int(osd_order) == 0 else osdw_batch
         syndrome_from = make_syndrome_fn(graph)
 
@@ -187,8 +184,6 @@ class MixedChannelDecoder:
         consistent output whenever the system is solvable — in the
         no-flip limit this matches ``ErasurePeelingDecoder``'s exact
         GF(2) stopping-set completion.
-      use_pallas_osd: run the OSD elimination in the VMEM-resident
-        Pallas kernel (ops/pallas_gf2.py).
 
     Example:
 
@@ -218,7 +213,6 @@ class MixedChannelDecoder:
         dtype=jnp.float32,
         max_rounds: int | None = None,
         osd_order: int | None = None,
-        use_pallas_osd: bool = False,
     ):
         if isinstance(H, TannerGraph):
             self.graph = H
@@ -237,7 +231,7 @@ class MixedChannelDecoder:
             self.graph, self.p_flip, self.max_iters,
             algorithm=algorithm, strategy=strategy,
             alpha=alpha, beta=beta, dtype=dtype, max_rounds=max_rounds,
-            osd_order=osd_order, use_pallas_osd=use_pallas_osd,
+            osd_order=osd_order,
         )
 
     def _native_prior(self, erasures: np.ndarray, per) -> np.ndarray:

@@ -3,7 +3,7 @@
 The reference package decodes only bit-flip channels; erasures (known
 error *locations*, unknown values) are the other canonical LDPC channel
 — optical links, and in QEC the dominant error type of photonic /
-neutral-atom hardware.  This decoder is a TPU-native addition: the
+neutral-atom hardware.  This decoder is an addition beyond the reference: the
 classic peeling algorithm is a chain of "find a check with exactly one
 erased neighbor, read that bit off its syndrome" steps, which batches
 perfectly as *parallel* leaf peeling — every degree-1 check in the
@@ -71,10 +71,10 @@ def make_peel_fn(graph: TannerGraph, max_rounds: int | None = None):
         eps = erasures.astype(bool)
 
         # all cross-layout moves are shared-index jnp.take gathers along
-        # axis 1 (the decoders' proven fast form — XLA lowers the
-        # batch-dim advanced-indexing form ~13x slower on TPU) and the
+        # axis 1 (the decoders' proven fast form — XLA lowered the
+        # batch-dim advanced-indexing form ~13x slower) and the
         # resolution runs var-side by gather: a scatter with duplicate
-        # indices serializes on TPU
+        # indices serializes
         def gather_c(x):  # [B, n] -> [B, m, dc] per-check neighbor values
             return jnp.take(x, cv_flat, axis=1).reshape(B, m, dc)
 

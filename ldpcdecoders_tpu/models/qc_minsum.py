@@ -1,26 +1,13 @@
-"""Quasi-cyclic / group-circulant min-sum decoder: the fused VMEM path.
+"""Quasi-cyclic / group-circulant min-sum decoder.
 
-``QCMinSumDecoder`` decodes codes with circulant block structure.  Two
-backends share one semantics (normalized/offset min-sum, per-lane early
-stop):
-
-  * ``backend='pallas'`` — the whole decode (every BP iteration, the
-    syndrome check, the early exit) runs as ONE Pallas kernel with all
-    messages resident in VMEM (ops/pallas_qc.py).  Cross-layout moves
-    are static cyclic rolls (plus a select for 2-D group shifts), so no
-    HBM round-trips happen between iterations — the structural win that
-    arbitrary-graph codes cannot get on today's Mosaic (no in-kernel
-    gather; see docs/ROADMAP.md).
-  * ``backend='xla'`` — the generic edge-list decoder
-    (models/minsum.py) on the lifted Tanner graph; the correctness
-    oracle and the portable fallback.
-
-Three construction paths:
+``QCMinSumDecoder`` decodes codes with circulant block structure through
+the generic edge-list decoders (models/minsum.py, models/layered.py,
+models/bp.py) on the lifted Tanner graph.  What it adds is the
+construction from circulant data:
 
   * ``QCMinSumDecoder(base, Z, ...)`` — 1-D quasi-cyclic base matrix
     (codes/qc.py); the lifted graph orders each check's neighbors by
-    ascending variable index, matching the generic decoder's slot
-    order, so the two backends tie-break identically (bitwise parity).
+    ascending variable index, matching the generic decoder's slot order.
   * ``QCMinSumDecoder.from_group_terms(terms, mb, nb, group, ...)`` —
     2-D group-circulant edge terms over ``Z_l x Z_m``
     (codes/qc.py::qc_group_lift_edges).
@@ -50,38 +37,25 @@ class QCMinSumDecoder(Decoder):
     Args:
       base: ``[mb, nb]`` QC base matrix (-1 = zero block, else circulant
         shift in ``[0, Z)``); see codes/qc.py.
-      Z: lift (circulant) size.  The compiled Pallas path is fastest with
-        ``Z`` a multiple of 128 (full TPU lanes).
+      Z: lift (circulant) size.
       per: physical error rate (sets the scalar channel LLR).
       max_iters: maximum BP iterations (full sweeps for 'layered').
       alpha, beta: min-sum normalization / offset.  alpha=None resolves
         to the schedule default: 1.0 flooding, 0.8 layered (the layered
         schedule amplifies min-sum's magnitude overestimate — see
         models/layered.py for the measurement).
-      backend: 'pallas' (fused whole-decode kernel) or 'xla' (generic
-        edge-list decoder on the lifted graph).
-      schedule: 'flooding' (default) or 'layered' (serial-C over base
-        rows — conflict-free layers for single-term blocks, ~2x fewer
-        sweeps; the XLA backend uses its own greedy conflict-free
-        partition of the lifted graph, so the two backends match only
-        behaviorally under 'layered', not bitwise).
-      batch_tile: Pallas batch-tile size (lanes decoded per kernel
-        program); batches are padded up to a multiple of this.  None
-        (default) auto-picks the largest power-of-two <= 32 whose
-        estimated VMEM footprint fits the measured budget; 32 is the
-        sweet spot on v5e when it fits (amortizes per-op control
-        overhead while keeping per-tile early exit fine-grained).
-        Explicit values are honored as-is (and raise past the budget).
-      dtype: message precision — jnp.float32 (default) or jnp.bfloat16
-        (half the VMEM / register traffic; LLR outputs stay float32).
-      interpret: run the Pallas kernel in interpreter mode (CPU tests).
+      schedule: 'flooding' (default) or 'layered' (a greedy
+        conflict-free partition of the lifted graph's checks,
+        models/layered.py; min-sum only).
+      algorithm: 'minsum' (default) or 'sumproduct' (flooding only).
+      dtype: message precision — jnp.float32 (default) or jnp.bfloat16.
 
     Example:
 
     >>> import numpy as np
     >>> from ldpcdecoders_tpu import QCMinSumDecoder, random_qc_base_matrix
     >>> base = random_qc_base_matrix(8, 4, 2, 16, rng=0)
-    >>> dec = QCMinSumDecoder(base, 16, 0.05, 20, backend='xla')
+    >>> dec = QCMinSumDecoder(base, 16, 0.05, 20)
     >>> syn = np.zeros(dec.m, np.int8)
     >>> err, converged = dec.decode(syn)
     >>> int(err.sum()), converged
@@ -97,12 +71,9 @@ class QCMinSumDecoder(Decoder):
         *,
         alpha: float | None = None,
         beta: float = 0.0,
-        backend: str = "pallas",
         schedule: str = "flooding",
         algorithm: str = "minsum",
-        batch_tile: int | None = None,
         dtype=jnp.float32,
-        interpret: bool = False,
     ):
         base = np.asarray(base, dtype=np.int64)
         rows, cols, m, n = qc_lift_edges(base, Z)
@@ -112,9 +83,8 @@ class QCMinSumDecoder(Decoder):
         self.base = base
         self._setup(
             terms, mb, nb, (int(Z), 1), rows, cols, per, max_iters,
-            alpha=alpha, beta=beta, backend=backend, schedule=schedule,
-            algorithm=algorithm, batch_tile=batch_tile, dtype=dtype,
-            interpret=interpret,
+            alpha=alpha, beta=beta, schedule=schedule,
+            algorithm=algorithm, dtype=dtype,
         )
 
     @classmethod
@@ -129,12 +99,9 @@ class QCMinSumDecoder(Decoder):
         *,
         alpha: float | None = None,
         beta: float = 0.0,
-        backend: str = "pallas",
         schedule: str = "flooding",
         algorithm: str = "minsum",
-        batch_tile: int | None = None,
         dtype=jnp.float32,
-        interpret: bool = False,
     ) -> "QCMinSumDecoder":
         """Build from 2-D group-circulant edge terms over ``Z_l x Z_m``.
 
@@ -149,9 +116,8 @@ class QCMinSumDecoder(Decoder):
         self.base = None
         self._setup(
             terms, int(mb), int(nb), (gl, gm), rows, cols, per, max_iters,
-            alpha=alpha, beta=beta, backend=backend, schedule=schedule,
-            algorithm=algorithm, batch_tile=batch_tile, dtype=dtype,
-            interpret=interpret,
+            alpha=alpha, beta=beta, schedule=schedule,
+            algorithm=algorithm, dtype=dtype,
         )
         return self
 
@@ -169,8 +135,7 @@ class QCMinSumDecoder(Decoder):
         Example:
 
         >>> from ldpcdecoders_tpu import QCMinSumDecoder
-        >>> dec = QCMinSumDecoder.for_bicycle("bb72", "x", 0.01, 30,
-        ...                                   backend='xla')
+        >>> dec = QCMinSumDecoder.for_bicycle("bb72", "x", 0.01, 30)
         >>> dec.m, dec.n
         (36, 72)
         """
@@ -204,8 +169,7 @@ class QCMinSumDecoder(Decoder):
 
     def _setup(
         self, terms, mb, nb, group, rows, cols, per, max_iters,
-        *, alpha, beta, backend, schedule, algorithm, batch_tile, dtype,
-        interpret,
+        *, alpha, beta, schedule, algorithm, dtype,
     ):
         gl, gm = group
         Z = gl * gm
@@ -231,162 +195,47 @@ class QCMinSumDecoder(Decoder):
                 f"unknown algorithm {algorithm!r} (want 'minsum' or 'sumproduct')"
             )
         self.algorithm = algorithm
-        if backend == "auto":
-            # mirror DecoderConfig's resolution: the fused kernel on TPU,
-            # the generic XLA edge-list decoder elsewhere (CPU/GPU cannot
-            # lower the Mosaic kernel)
-            backend = ("pallas" if jax.devices()[0].platform == "tpu"
-                       else "xla")
         self.alpha = float(alpha) if alpha is not None else (
             0.8 if schedule == "layered" and algorithm == "minsum" else 1.0
         )
         self.beta = float(beta)
-        self.backend = backend
+        if jnp.dtype(dtype) not in (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16)):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.dtype = jnp.dtype(dtype).type  # scalar type: callable like jnp.float32
-        if batch_tile is None:
-            # auto: the largest power-of-two tile <= 32 whose estimated
-            # VMEM footprint fits the measured budget (explicit values
-            # are honored as-is and raise past the budget)
-            from ..ops.pallas_qc import VMEM_BUDGET, qc_vmem_estimate
+        if algorithm == "sumproduct":
+            if schedule == "layered":
+                raise ValueError(
+                    "layered sum-product is not implemented (the layered "
+                    "schedule is min-sum only)"
+                )
+            from .bp import make_bp_decode_fn
 
-            batch_tile = 32
-            while batch_tile > 1 and qc_vmem_estimate(
-                len(terms), mb, nb, Z, batch_tile,
-                jnp.dtype(dtype).itemsize, schedule == "layered",
-            ) > VMEM_BUDGET:
-                batch_tile //= 2
-        self.batch_tile = int(batch_tile)
-        self._mb, self._nb = mb, nb
-        self._interpret = bool(interpret)
-        if backend == "pallas":
-            from ..ops.pallas_qc import make_group_qc_minsum_pallas_fn
+            fn = make_bp_decode_fn(self.graph, self.per, self.max_iters)
+        elif schedule == "layered":
+            from .layered import make_layered_minsum_fn
 
-            # the default kernel bakes the scalar prior (fastest); the
-            # first per= override lazily compiles a second kernel that
-            # takes per-bit LLRs as a VMEM input (erasures / punctured
-            # bits / sweeps), cached for the decoder's lifetime
-            self._prior_decode_fn = None
-            self._prior_tile = None
-            self._decode_fn = make_group_qc_minsum_pallas_fn(
-                terms,
-                mb,
-                nb,
-                (gl, gm),
-                float(per_to_llr(self.per, 1)),
-                self.max_iters,
-                alpha=self.alpha,
-                beta=self.beta,
-                batch_tile=self.batch_tile,
-                schedule=schedule,
-                algorithm=algorithm,
-                dtype=self.dtype,
-                interpret=interpret,
+            fn = make_layered_minsum_fn(
+                self.graph, self.per, self.max_iters,
+                alpha=self.alpha, beta=self.beta, dtype=self.dtype,
             )
-        elif backend == "xla":
-            if algorithm == "sumproduct":
-                if schedule == "layered":
-                    raise ValueError(
-                        "layered sum-product is only available on the "
-                        "pallas backend (the XLA layered path is min-sum)"
-                    )
-                from .bp import make_bp_decode_fn
-
-                self._decode_fn = jax.jit(
-                    make_bp_decode_fn(self.graph, self.per, self.max_iters)
-                )
-            elif schedule == "layered":
-                from .layered import make_layered_minsum_fn
-
-                self._decode_fn = jax.jit(
-                    make_layered_minsum_fn(
-                        self.graph, self.per, self.max_iters,
-                        alpha=self.alpha, beta=self.beta, dtype=self.dtype,
-                    )
-                )
-            else:
-                self._decode_fn = jax.jit(
-                    make_minsum_decode_fn(
-                        self.graph, self.per, self.max_iters,
-                        alpha=self.alpha, beta=self.beta, dtype=self.dtype,
-                    )
-                )
         else:
-            raise ValueError(f"unknown backend {backend!r} (want 'pallas' or 'xla')")
-
-    def _ensure_prior_kernel(self):
-        """Lazily build (and cache) the per-bit-prior variant of the fused
-        kernel; its batch tile may be smaller (one extra VMEM input)."""
-        if self._prior_decode_fn is None:
-            from ..ops.pallas_qc import (
-                VMEM_BUDGET,
-                make_group_qc_minsum_pallas_fn,
-                qc_vmem_estimate,
+            fn = make_minsum_decode_fn(
+                self.graph, self.per, self.max_iters,
+                alpha=self.alpha, beta=self.beta, dtype=self.dtype,
             )
-
-            tile = self.batch_tile
-            while tile > 1 and qc_vmem_estimate(
-                len(self.terms), self._mb, self._nb, self.Z, tile,
-                jnp.dtype(self.dtype).itemsize, self.schedule == "layered",
-                prior_input=True,
-            ) > VMEM_BUDGET:
-                tile //= 2
-            self._prior_tile = tile
-            self._prior_decode_fn = make_group_qc_minsum_pallas_fn(
-                self.terms, self._mb, self._nb, self.group,
-                0.0,  # unused in prior-input mode
-                self.max_iters,
-                alpha=self.alpha, beta=self.beta, batch_tile=tile,
-                schedule=self.schedule, algorithm=self.algorithm,
-                dtype=self.dtype, interpret=self._interpret,
-                prior_input=True,
-            )
-        return self._prior_decode_fn, self._prior_tile
+        self._decode_fn = jax.jit(fn)
 
     def _decode_batch(self, syndromes, seed: int = 0, per=None):
-        syndromes = jnp.asarray(syndromes)
-        if self.backend == "xla":
-            arg = None
-            if per is not None:
-                if self.algorithm == "sumproduct":
-                    # bp decode takes the channel probability ratio p/(1-p);
-                    # per_to_ratio handles scalar/[n]/[B, n] uniformly
-                    from .priors import per_to_ratio
-
-                    arg = jnp.asarray(per_to_ratio(per, self.n), jnp.float32)
-                else:
-                    arg = jnp.asarray(per_to_llr(per, self.n), jnp.float32)
-            err, converged, iters, soft = self._decode_fn(syndromes, arg)
-            key = "log_probabs" if self.algorithm == "sumproduct" else "llrs"
-            return err, converged, iters, {key: soft}
-        B = syndromes.shape[0]
+        arg = None
         if per is not None:
-            decode_fn, tile = self._ensure_prior_kernel()
-            L0 = np.broadcast_to(
-                np.asarray(per_to_llr(per, self.n), np.float32), (B, self.n)
-            )
-        else:
-            decode_fn, tile = self._decode_fn, self.batch_tile
-            L0 = None
-        pad = (-B) % tile
-        if pad:
-            syndromes = jnp.concatenate(
-                [syndromes, jnp.zeros((pad, self.m), syndromes.dtype)], axis=0
-            )
-            if L0 is not None:
-                # pad lanes decode the zero syndrome; a solidly positive
-                # LLR keeps them trivially converged
-                L0 = np.concatenate(
-                    [L0, np.full((pad, self.n), 10.0, np.float32)], axis=0
-                )
-        if L0 is not None:
-            err, converged, iters, llrs = decode_fn(syndromes, jnp.asarray(L0))
-        else:
-            err, converged, iters, llrs = decode_fn(syndromes)
-        if pad:
-            err, converged, iters, llrs = (
-                err[:B],
-                converged[:B],
-                iters[:B],
-                llrs[:B],
-            )
-        return err, converged, iters, {"llrs": llrs}
+            if self.algorithm == "sumproduct":
+                # bp decode takes the channel probability ratio p/(1-p);
+                # per_to_ratio handles scalar/[n]/[B, n] uniformly
+                from .priors import per_to_ratio
+
+                arg = jnp.asarray(per_to_ratio(per, self.n), jnp.float32)
+            else:
+                arg = jnp.asarray(per_to_llr(per, self.n), jnp.float32)
+        err, converged, iters, soft = self._decode_fn(jnp.asarray(syndromes), arg)
+        key = "log_probabs" if self.algorithm == "sumproduct" else "llrs"
+        return err, converged, iters, {key: soft}

@@ -7,7 +7,7 @@ it decodes ``R`` consecutive noisy measurement rounds jointly over the
 space-time detector graph built by ``codes/spacetime.py`` — one sparse
 parity-check matrix whose variables are every round's fresh data errors
 and every round's readout errors, so the whole thing runs through the
-existing batched TPU decoders (BP, min-sum, BP+OSD, ...) as-is, in one
+existing batched decoders (BP, min-sum, BP+OSD, ...) as-is, in one
 compiled program per batch of shots.
 
 :class:`SpaceTimeDecoder` is a full :class:`~..models.base.Decoder`:
@@ -19,7 +19,7 @@ decoder (the reference's one-contract ``decode!`` discipline,
 /root/reference/src/decoders/abstract_decoder.jl:31-48, carried to the
 multi-round setting).
 
-TPU shape notes: the space-time matrix for ``R`` rounds of an ``[m, n]``
+Shape notes: the space-time matrix for ``R`` rounds of an ``[m, n]``
 block has ``R*m`` checks and ``R*n + (R-1)*m`` variables — still one
 static-shape Tanner graph, so the batch axis stays the only axis XLA
 parallelizes over and FER sweeps reuse one executable across noise
@@ -127,11 +127,11 @@ class SpaceTimeDecoder(Decoder):
     @classmethod
     def for_bicycle(cls, code, block: str, rounds: int, per,
                     max_iters: int, *, meas_error_rate=None,
-                    schedule: str = "layered", backend: str = "auto",
+                    schedule: str = "layered",
                     alpha: float | None = None, perfect_last: bool = True,
                     verify_lift: bool = True, **knobs):
         """Space-time decoder for a bivariate-bicycle block with the
-        fused QC kernel as its inner (VERDICT r4 item 5).
+        QC decoder as its inner (VERDICT r4 item 5).
 
         The space-time matrix of a group-circulant code is itself
         group-circulant: row-block ``r`` holds the stabilizer block at
@@ -142,15 +142,15 @@ class SpaceTimeDecoder(Decoder):
         flooding leaves 0.5% to OSD).  This constructor builds that
         lift as ``QCMinSumDecoder.from_group_terms`` and injects it as
         the inner, with the mixed data/measurement prior
-        (``meas_error_rate != per``) carried per column through the
-        vector-prior kernel path.
+        (``meas_error_rate != per``) carried per column as a vector
+        prior.
 
         Args:
           code: registry name ("bb72", "bb144", ...) or an
             ``(l, m, a_terms, b_terms)`` tuple (codes/bicycle.py).
           block: 'x' (``Hx = [A | B]``) or 'z' (inverse monomials).
           schedule: 'layered' (default — the measured win) or
-            'flooding'; backend/alpha/knobs forward to the QC decoder.
+            'flooding'; alpha/knobs forward to the QC decoder.
           verify_lift: assert the QC lift equals ``spacetime_pcm``
             element-wise before returning (cheap; skip only in tight
             construction loops).
@@ -214,7 +214,7 @@ class SpaceTimeDecoder(Decoder):
             nH, mH, R, per, q, perfect_last=perfect_last).mean())
         inner = QCMinSumDecoder.from_group_terms(
             terms, R, nb, (l, m), prior_mean, max_iters,
-            schedule=schedule, backend=backend, alpha=alpha, **knobs)
+            schedule=schedule, alpha=alpha, **knobs)
         self = cls(H, R, per, max_iters, meas_error_rate=meas_error_rate,
                    perfect_last=perfect_last, _inner=inner)
         if verify_lift:

@@ -17,7 +17,7 @@ so each window decodes an *adjusted* detector slice and the whole
 stream telescopes — the final cumulative estimate exactly reproduces
 the final perfect syndrome (tested), just like a full-history decode.
 
-TPU streaming notes: every mid-stream window is ONE jitted program
+Streaming notes: every mid-stream window is ONE jitted program
 (decode + commit-XOR + carry extraction fused); the ``[B, m]`` carry
 mask, the accumulated correction ``E``, and the convergence tally all
 stay device-resident between windows, so a whole stream dispatches

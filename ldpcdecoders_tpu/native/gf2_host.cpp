@@ -3,7 +3,7 @@
 // FER sweeps are host-bound without this: the harness computes two
 // [B, m] syndromes per batch (injected errors + decoder guesses) and the
 // NumPy int64 matmul costs ~600 ms at B=1024 on the (1000,10,9) flagship
-// code — capping sweeps at ~940 syndromes/s while the TPU decodes 115k/s.
+// code — capping sweeps at ~940 syndromes/s, far below the device decode rate.
 // Packing rows into uint64 words turns each syndrome bit into
 // popcount(H_row & err_row) & 1: ~15M word-ops per batch, threaded over
 // lanes (reference analog being replaced: the per-iteration `(H*err) .% 2`

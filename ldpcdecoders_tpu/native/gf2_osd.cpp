@@ -1,11 +1,11 @@
 // Native threaded OSD for problem sizes the device paths cannot hold.
 //
 // The device OSD keeps each lane's reliability-permuted packed matrix
-// resident ([W, m] u32): past ~3 MB/lane the Pallas kernel exceeds the
-// VMEM stack and the XLA fused path needs ~GBs of HBM for the per-lane
-// sort+pack (measured: the 864 x 31,648 bb144 circuit-level DEM crashed
-// the worker at batch 256 and hung compiles at batch 64 — see
-// docs/ROADMAP.md "bb144 circuit-level").  On host the same solve is a
+// resident ([W, m] u32): past 128 KB/lane the Pallas kernel does not fit
+// its block and the XLA path needs ~GBs of device memory for the
+// per-lane sort+pack (measured on an earlier accelerator: the
+// 864 x 31,648 bb144 circuit-level DEM crashed the worker at batch 256
+// and hung compiles at batch 64).  On host the same solve is a
 // *column*-reduction: candidate columns in per-lane reliability order
 // are reduced against a growing basis of (reduced column, pivot row,
 // original-pivot combination) triples — exactly the reference fast

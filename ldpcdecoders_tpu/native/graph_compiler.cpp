@@ -1,7 +1,7 @@
 // Native Tanner-graph edge-list compiler.
 //
 // Host-side runtime tier: compiles a dense 0/1 parity-check matrix into the
-// padded adjacency + cross-layout gather permutations consumed by the TPU
+// padded adjacency + cross-layout gather permutations consumed by the device
 // kernels (see codes/graph.py for the layout contract).  One O(nnz) pass;
 // replaces the pure-Python fallback for production-scale codes (n ~ 1e6,
 // where the Python dict loops take minutes and this takes milliseconds).

@@ -9,7 +9,7 @@ naive total/element division would destroy.
 
 All helpers take the degree axis as a parameter; decoders use the
 slot-major layout ``[B, slot, node]`` (degree axis 1) so the large node
-axis stays in the TPU lane dimension.
+axis stays the minor one.
 """
 
 from __future__ import annotations

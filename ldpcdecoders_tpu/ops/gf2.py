@@ -2,7 +2,7 @@
 
 The reference's OSD runs data-dependent Gaussian elimination over a dense
 BitMatrix (/root/reference/src/decoders/belief_propagation_osd.jl:63-209).
-On TPU we re-architect it as fixed-trip-count ``fori_loop`` passes over
+Here it is re-architected as fixed-trip-count ``fori_loop`` passes over
 rows bit-packed into uint32 words (32 columns per lane word):
 
   * every row operation (swap / XOR-eliminate) is a masked vectorized
@@ -47,6 +47,18 @@ def pack_bits(bits):
     b = b.reshape(bits.shape[:-1] + (W, 32))
     shifts = jnp.left_shift(jnp.uint32(1), jnp.arange(32, dtype=jnp.uint32))
     return jnp.sum(b * shifts, axis=-1, dtype=jnp.uint32)
+
+
+def _parity_dot(a, b):
+    """``(a @ b) & 1`` as uint32 for 0/1 operands, exact on every platform.
+
+    bf16 holds 0/1 exactly and the f32 accumulator holds every sum.  (The
+    s8 x s8 -> s32 form returned wrong sums on an H100 with JAX 0.9:
+    errors up to the contraction length, while the CPU was exact.)
+    """
+    s = jnp.dot(a.astype(jnp.bfloat16), b.astype(jnp.bfloat16),
+                preferred_element_type=jnp.float32)
+    return (s.astype(jnp.int32) & 1).astype(jnp.uint32)
 
 
 def _col(Hp, j):
@@ -145,7 +157,7 @@ def gf2_osdw(Hp, bp_err, syndrome, osd_order, n):
     Behaviorally faithful to belief_propagation_osd.jl:127-209 (full
     elimination with syndrome co-transform, then exhaustive assignment of
     the first ``osd_order`` most-reliable non-pivot columns, keeping the
-    minimum-Hamming-weight completion), but re-architected for the TPU:
+    minimum-Hamming-weight completion), but re-architected for batches:
 
       * single-pass Gauss–Jordan with a *used-row mask* instead of row
         swaps — pivot columns (and therefore the solution, which depends
@@ -153,8 +165,8 @@ def gf2_osdw(Hp, bp_err, syndrome, osd_order, n):
         forward-elimination + backward-diagonalization, while saving the
         whole m-trip diagonalization loop and two masked passes per trip;
       * the packed matrix lives transposed ``[W, m]`` so the large row
-        axis m occupies the TPU lane dimension (full 128-lane VPU use;
-        the natural ``[m, W]`` layout keeps only 32 of 128 lanes busy);
+        axis m is the minor one (the natural ``[m, W]`` layout puts the
+        short word axis there);
       * the column loop is a ``while_loop`` that exits as soon as the
         rank is exhausted (all m pivots found) rather than always running
         n trips.
@@ -174,8 +186,8 @@ def gf2_eliminate(Ht, s, n):
     """Gauss–Jordan RREF of packed columns (single lane, XLA path).
 
     Args:
-      Ht: ``[W, m]`` uint32 — transposed packed rows (row axis in TPU
-        lanes; word w of row i at ``Ht[w, i]`` holds columns 32w..32w+31).
+      Ht: ``[W, m]`` uint32 — transposed packed rows (row axis minor;
+        word w of row i at ``Ht[w, i]`` holds columns 32w..32w+31).
       s: ``[m]`` uint32 0/1 syndrome, co-transformed in place.
       n: static column count.
 
@@ -227,17 +239,14 @@ def osdw_sweep(Ht, s, pivcol, r, bp_err, osd_order, n):
     transformed syndrome, and the minimum-Hamming-weight completion wins
     with first-candidate tie order.
 
-    Re-architected for the MXU: a candidate's pivot completion differs
+    Re-architected as a matrix product: a candidate's pivot completion differs
     from the base candidate's only by an XOR of the swept RREF columns,
     so instead of a 2^w-trip serial loop re-deriving every completion by
     popcount over the whole packed system, all candidate weights come
-    from ONE ``[2^w, w] @ [w, m]`` int8 matmul (chunked past 512
+    from ONE ``[2^w, w] @ [w, m]`` 0/1 matmul (chunked past 512
     candidates to bound memory) + row reductions, and only the argmin
-    candidate is materialized.  Measured on TPU v5e, (1000,10,9) code,
-    B=1024, per=0.01: sweep cost is now ~flat in order (4,189 / 4,343 /
-    4,217 syndromes/s at w = 2 / 5 / 10) vs the serial loop's 4,021 /
-    2,597 / 197 — 21x at w=10 — leaving the elimination, not the sweep,
-    as the OSD-w bound.
+    candidate is materialized.  Sweep cost is nearly flat in order,
+    leaving the elimination, not the sweep, as the OSD-w bound.
     """
     is_piv = jnp.zeros((n,), bool).at[pivcol].set(True, mode="drop")
     mr_order = jnp.argsort(is_piv, stable=True)
@@ -265,7 +274,7 @@ def osdw_sweep(Ht, s, pivcol, r, bp_err, osd_order, n):
         jnp.take(Ht, mr_cols >> 5, axis=0)
         >> (mr_cols & 31).astype(jnp.uint32)[:, None]
     ) & jnp.uint32(1)
-    C = jnp.where(swept[:, None], C, jnp.uint32(0)).astype(jnp.int8)
+    C = jnp.where(swept[:, None], C, jnp.uint32(0))
     base_bits = jnp.take(err0, mr_cols)  # [w]
     base_np_weight = jnp.sum(
         err0 * (~is_piv).astype(jnp.uint32), dtype=jnp.int32
@@ -280,10 +289,8 @@ def osdw_sweep(Ht, s, pivcol, r, bp_err, osd_order, n):
     def weights_of(x):
         """Completed-candidate Hamming weights for a chunk of x, [c]."""
         newbits = swept_bits(x)  # [c, w]
-        delta = (newbits ^ base_bits[None, :]).astype(jnp.int8)
-        flip = (
-            jnp.dot(delta, C, preferred_element_type=jnp.int32) & 1
-        ).astype(jnp.uint32)  # [c, m] pivot-assignment flips vs base
+        delta = newbits ^ base_bits[None, :]
+        flip = _parity_dot(delta, C)  # [c, m] pivot-assignment flips vs base
         piv_w = jnp.sum(
             (base_vals[None, :] ^ flip) * piv_valid[None, :],
             axis=1,
@@ -316,10 +323,8 @@ def osdw_sweep(Ht, s, pivcol, r, bp_err, osd_order, n):
 
     # materialize only the winner
     newbits_s = swept_bits(best_x)  # [w]
-    delta_s = (newbits_s ^ base_bits).astype(jnp.int8)
-    flip_s = (
-        jnp.dot(delta_s[None, :], C, preferred_element_type=jnp.int32)[0] & 1
-    ).astype(jnp.uint32)
+    delta_s = newbits_s ^ base_bits
+    flip_s = _parity_dot(delta_s[None, :], C)[0]
     err = err0.at[mr_cols].set(newbits_s)  # pivot writes below override
     return err.at[pivcol].set(base_vals ^ flip_s, mode="drop")
 
@@ -327,7 +332,7 @@ def osdw_sweep(Ht, s, pivcol, r, bp_err, osd_order, n):
 def osd_cs_sweep(Ht, s, pivcol, r, bp_err, lam, n):
     """Combination-sweep OSD ("OSD-CS") over an RREF system (single lane).
 
-    A TPU-native extension beyond the reference's exhaustive 2^w sweep
+    An extension beyond the reference's exhaustive 2^w sweep
     (belief_propagation_osd.jl:184-206): instead of every assignment of
     the first w non-pivot columns, the candidate set is
 
@@ -347,7 +352,7 @@ def osd_cs_sweep(Ht, s, pivcol, r, bp_err, lam, n):
     c changes the pivot completion by the RREF column C_c, so every
     single-flip weight comes from one ±1-weighted popcount pass over the
     packed matrix, and every pair weight from a ``[lam, m] @ [m, lam]``
-    Gram matmul (MXU) — weight(i,j) = w_i + w_j - 2*overlap(i,j).
+    Gram matmul — weight(i,j) = w_i + w_j - 2*overlap(i,j).
 
     Ties: the minimum-weight candidate wins; among equals the earlier
     candidate in (base, single flips most-reliable-first, pairs in

@@ -1,26 +1,28 @@
-"""Pallas TPU kernel: batched GF(2) Gauss–Jordan elimination for OSD.
+"""Pallas (Triton) kernel: batched GF(2) Gauss–Jordan elimination for OSD.
 
-This is the elimination stage of OSD-w (ops/gf2.py::gf2_eliminate) moved
-into a single VMEM-resident kernel.  The XLA ``while_loop`` form re-reads
-the whole ``[B, W, m]`` packed state from HBM on every one of the ~n
-serial column trips (~n * 4*W*m bytes per lane — hundreds of GB for the
-reference benchmark batch), which makes the elimination bandwidth-bound.
-Here each grid program keeps its batch tile's packed matrix in VMEM for
-the *entire* n-trip loop: HBM traffic drops to one read + one write of
-the state, and the trips run at VMEM bandwidth.
+The XLA form (ops/gf2.py::gf2_eliminate, vmapped) runs ~n serial column
+trips, and each trip is at least one kernel launch that reads and writes
+the whole ``[B, W, m]`` packed state in device memory.  Here one program
+owns one lane: it loads the lane's packed matrix once, carries it as a
+loop value (spread over the block's registers) through all n trips in a
+single launch, and writes it back once.  The pivot row is found by a
+block reduction.
 
-Semantics are identical to ``gf2_eliminate`` (same pivot columns, same
-co-transformed syndrome, same row->pivot-column map with sentinel n);
-the OSD-w candidate sweep stays in XLA (ops/gf2.py::osdw_sweep).
+The kernel only fits lanes whose packed matrix is small enough to live
+in one block's registers (:func:`fits_block`): the (1000, 10, 9)
+reference code is 32 words x 1024 rows x 4 B = 128 KB.  Wider matrices,
+such as circuit-level detector error models, take the XLA form.
 
-Mosaic constraints honored (probed on this toolchain, see
-ops/pallas_minsum.py): no materialized i1 tensors — boolean state is
-carried as uint32 0/1 with comparisons only ever feeding selects — and
-no arbitrary gathers — the pivot row is extracted with a masked
-lane-reduction, the current column with a dynamic sublane slice.
+Semantics are identical to ``gf2_eliminate`` / ``gf2_osd0`` (same pivot
+columns, same co-transformed syndrome, same row->pivot-column map with
+sentinel n); the OSD-w candidate sweep stays in XLA
+(ops/gf2.py::osdw_sweep).  Column j is read from the packed word
+``j >> 5``; the outer loop walks words and keeps the current word's
+column slice as its own loop value, so each trip makes one pass over the
+state for the row update and one reduction for the pivot row.
 
 Reference behavior being re-architected: the swap-based elimination of
-/root/reference/src/decoders/belief_propagation_osd.jl:127-172.
+the reference's belief_propagation_osd.jl:127-172.
 """
 
 from __future__ import annotations
@@ -29,196 +31,200 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.custom_partitioning import custom_partitioning
+from jax.experimental.pallas import triton as plgpu
+from jax.sharding import NamedSharding, PartitionSpec as P
 
-__all__ = ["gf2_eliminate_pallas", "gf2_osd0_pallas"]
+__all__ = ["fits_block", "gf2_eliminate_pallas", "gf2_osd0_pallas"]
 
-
-def _elim_kernel(ht_in, s_in, ht_out, s_out, piv_out, *, n, m_pad):
-    u1 = jnp.uint32(1)
-    u0 = jnp.uint32(0)
-    bt = ht_in.shape[0]
-    iota_m = jax.lax.broadcasted_iota(jnp.int32, (bt, m_pad), 1)
-
-    ht_out[:] = ht_in[:]
-    s_out[:] = s_in[:]
-    piv_out[:] = jnp.full((bt, m_pad), n, jnp.int32)
-
-    def trip(j, _):
-        w = j >> 5
-        bit = (j & 31).astype(jnp.uint32)
-        word = ht_out[:, pl.ds(w, 1), :][:, 0, :]  # [bt, m]
-        col = (word >> bit) & u1
-        pivcol = piv_out[:]
-        unused = jnp.where(pivcol == n, u1, u0)
-        avail = col * unused  # uint32 0/1
-        # first available row: min row index among avail (lane reduction)
-        k = jnp.min(jnp.where(avail > u0, iota_m, m_pad), axis=1)  # [bt]
-        found = jnp.where(k < m_pad, u1, u0)  # [bt]
-        is_k = jnp.where(iota_m == k[:, None], u1, u0)  # [bt, m]
-
-        ht = ht_out[:]  # [bt, W, m]
-        s = s_out[:]  # [bt, m]
-        # pivot row's packed words + syndrome bit via masked lane-reductions
-        # (Mosaic has no unsigned reductions: bitcast to i32, reduce — the
-        # mask selects exactly one element so the sum is that element —
-        # and bitcast back)
-        ht_i = jax.lax.bitcast_convert_type(ht, jnp.int32)
-        is_k_i = is_k.astype(jnp.int32)
-        pivrow = jax.lax.bitcast_convert_type(
-            jnp.sum(ht_i * is_k_i[:, None, :], axis=2), jnp.uint32
-        )  # [bt, W]
-        pivs = jax.lax.bitcast_convert_type(
-            jnp.sum(jax.lax.bitcast_convert_type(s, jnp.int32) * is_k_i, axis=1),
-            jnp.uint32,
-        )  # [bt]
-        elim = col * (u1 - is_k) * found[:, None]  # [bt, m] 0/1
-        ht_out[:] = jnp.where(elim[:, None, :] > u0, ht ^ pivrow[:, :, None], ht)
-        s_out[:] = jnp.where(elim > u0, s ^ pivs[:, None], s)
-        piv_out[:] = jnp.where(
-            (is_k * found[:, None]) > u0, j, pivcol
-        )
-        return 0
-
-    # static fori over all n columns.  A while_loop with early exit at
-    # rank exhaustion was measured SLOWER on v5e (osd2 4,202 vs 4,206/s —
-    # a wash; osd0 2,467 vs 3,304/s — a clear loss): Mosaic pipelines a
-    # static trip count far better than a data-dependent loop, and the
-    # per-trip cond reduction costs more than the ~9% of trips it skips.
-    jax.lax.fori_loop(0, n, trip, 0)
+# state words a program may carry: 32 K x 4 B = 128 KB (the (1000, 10, 9)
+# code's 32 x 1024 words), 128 a thread at 8 warps; ptxas (sm_90a) fits
+# that in 202 registers without spilling
+MAX_BLOCK_WORDS = 32 * 1024
 
 
-def _osd0_kernel(ht_in, s_in, bp_ref, ht_out, s_out, piv_out, *, n, m_pad, n_pad):
+def _pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def _block_dims(n: int, m: int) -> tuple[int, int]:
+    """Power-of-two (words, rows) block of one lane's packed matrix."""
+    return max(_pow2((n + 31) // 32), 2), max(_pow2(m), 16)
+
+
+def fits_block(n: int, m: int) -> bool:
+    """True when one lane's packed ``[W, m]`` matrix fits the kernel block."""
+    wp, mp = _block_dims(n, m)
+    return wp * mp <= MAX_BLOCK_WORDS
+
+
+def _num_warps(wp: int, mp: int) -> int:
+    # ~128 state words a thread, between 4 and 8 warps: on an H100 at the
+    # full 128 KB block, 8 warps ran 14.1 ms per 1024 lanes without
+    # spills, 16 warps 16.2 ms (128 registers, 64 B spilled), 32 warps
+    # 22.0 ms
+    return int(min(8, max(4, (wp * mp) // (128 * 32))))
+
+
+def _col_bits(word, b):
+    return (word >> b) & 1
+
+
+def _elim_kernel(ht_ref, s_ref, ht_out, s_out, piv_out, *, n, wp, mp):
+    iota_m = jax.lax.broadcasted_iota(jnp.int32, (mp,), 0)
+    iota_w = jax.lax.broadcasted_iota(jnp.int32, (wp, mp), 0)
+
+    def word_trip(w, carry):
+        ht, s, piv = carry
+        word = jnp.sum(jnp.where(iota_w == w, ht, 0), axis=0)  # [mp]
+
+        def trip(b, carry):
+            ht, word, s, piv = carry
+            j = w * 32 + b
+            col = _col_bits(word, b)
+            avail = (col == 1) & (piv == n)
+            k = jnp.min(jnp.where(avail, iota_m, mp))
+            found = (k < mp) & (j < n)
+            is_k = iota_m == k
+            pivrow = jnp.sum(jnp.where(is_k[None, :], ht, 0), axis=1)  # [wp]
+            pivw = jnp.sum(jnp.where(is_k, word, 0))
+            pivs = jnp.sum(jnp.where(is_k, s, 0))
+            elim = (col == 1) & ~is_k & found
+            ht = jnp.where(elim[None, :], ht ^ pivrow[:, None], ht)
+            word = jnp.where(elim, word ^ pivw, word)
+            s = jnp.where(elim, s ^ pivs, s)
+            piv = jnp.where(is_k & found, j, piv)
+            return ht, word, s, piv
+
+        ht, _, s, piv = jax.lax.fori_loop(0, 32, trip, (ht, word, s, piv))
+        return ht, s, piv
+
+    init = (ht_ref[...], s_ref[...], jnp.full((mp,), n, jnp.int32))
+    ht, s, piv = jax.lax.fori_loop(0, (n + 31) // 32, word_trip, init)
+    ht_out[...] = ht
+    s_out[...] = s
+    piv_out[...] = piv
+
+
+def _osd0_kernel(ht_ref, s_ref, bp_ref, s_out, piv_out, *, n, wp, mp):
     """OSD-0 partial elimination (ops/gf2.py::gf2_osd0 semantics).
 
-    Differences from the reference-shaped XLA form: used-row mask instead
-    of row swaps and eager above-row elimination instead of lazy
-    back-substitution — the pivot columns, stopping point, and final
-    pivot assignments (``corr[pivcol[k]] = s[k]``) are identical, so the
-    output correction matches bit-for-bit (tested).  The early-stop
-    ('residual exhausted below the pivot space') carries per-lane
-    ``active`` flags through the column loop.
+    Used-row mask instead of row swaps and eager above-row elimination
+    instead of lazy back-substitution: the pivot columns, stopping point
+    and final pivot assignments (``corr[pivcol[k]] = s[k]``) are those of
+    the reference-shaped XLA form, so the correction matches it bit for
+    bit whenever the residual lies in H's column space — always the case
+    for ``syndrome ^ H @ bp_err`` of a real syndrome.  (A residual outside
+    it, on a rank-deficient H, has no consistent correction; the two forms
+    may then return different inconsistent ones.)  The early stop
+    ('residual exhausted outside the pivot space') is the carried
+    ``active`` flag.
     """
-    u1 = jnp.uint32(1)
-    u0 = jnp.uint32(0)
-    bt = ht_in.shape[0]
-    iota_m = jax.lax.broadcasted_iota(jnp.int32, (bt, m_pad), 1)
-    iota_n = jax.lax.broadcasted_iota(jnp.int32, (bt, n_pad), 1)
+    iota_m = jax.lax.broadcasted_iota(jnp.int32, (mp,), 0)
+    iota_w = jax.lax.broadcasted_iota(jnp.int32, (wp, mp), 0)
+    iota_n = jax.lax.broadcasted_iota(jnp.int32, (wp * 32,), 0)
+    bp = bp_ref[...]  # [wp * 32] 0/1 decisions
 
-    ht_out[:] = ht_in[:]
-    s_out[:] = s_in[:]
-    piv_out[:] = jnp.full((bt, m_pad), n, jnp.int32)
+    def word_trip(w, carry):
+        ht, s, piv, active = carry
+        word = jnp.sum(jnp.where(iota_w == w, ht, 0), axis=0)
 
-    def trip(j, active):  # active [bt] u32
-        s = s_out[:]
-        pivcol = piv_out[:]
-        unused = jnp.where(pivcol == n, u1, u0)
-        # residual remaining outside the pivot space? (pre-fold, as in
-        # the reference's trip-entry check)
-        s_bit = jnp.where(s > u0, u1, u0)
-        rem_i = jnp.sum((s_bit * unused).astype(jnp.int32), axis=1)  # [bt]
-        active = active * jnp.where(rem_i > 0, u1, u0)
+        def trip(b, carry):
+            ht, word, s, piv, active = carry
+            j = w * 32 + b
+            unused = piv == n
+            # residual left outside the pivot space? (checked on entry,
+            # before this column's fold, as in the reference)
+            rem = jnp.max(jnp.where(unused, s, 0))
+            active = active & (rem > 0) & (j < n)
+            col = _col_bits(word, b)
+            avail = (col == 1) & unused
+            k = jnp.min(jnp.where(avail, iota_m, mp))
+            do = active & (k < mp)
+            is_k = iota_m == k
+            # fold bp_err[j] into the residual through the current column
+            bpj = jnp.sum(jnp.where(iota_n == j, bp, 0))
+            s = jnp.where(do & (bpj == 1), s ^ col, s)
+            pivrow = jnp.sum(jnp.where(is_k[None, :], ht, 0), axis=1)
+            pivw = jnp.sum(jnp.where(is_k, word, 0))
+            pivs = jnp.sum(jnp.where(is_k, s, 0))
+            elim = (col == 1) & ~is_k & do
+            ht = jnp.where(elim[None, :], ht ^ pivrow[:, None], ht)
+            word = jnp.where(elim, word ^ pivw, word)
+            s = jnp.where(elim, s ^ pivs, s)
+            piv = jnp.where(is_k & do, j, piv)
+            return ht, word, s, piv, active
 
-        w = j >> 5
-        bit = (j & 31).astype(jnp.uint32)
-        word = ht_out[:, pl.ds(w, 1), :][:, 0, :]
-        col = (word >> bit) & u1
-        avail = col * unused
-        k = jnp.min(jnp.where(avail > u0, iota_m, m_pad), axis=1)
-        found = jnp.where(k < m_pad, u1, u0)
-        do = active * found  # [bt]
-        is_k = jnp.where(iota_m == k[:, None], u1, u0)
+        ht, _, s, piv, active = jax.lax.fori_loop(
+            0, 32, trip, (ht, word, s, piv, active))
+        return ht, s, piv, active
 
-        # fold bp_err[j] into the residual using the current column
-        bp = bp_ref[:]
-        bpj = jax.lax.bitcast_convert_type(
-            jnp.sum(
-                jax.lax.bitcast_convert_type(bp, jnp.int32)
-                * jnp.where(iota_n == j, 1, 0),
-                axis=1,
-            ),
-            jnp.uint32,
-        )  # [bt]
-        s = s ^ (col * (do * bpj)[:, None])
-
-        ht = ht_out[:]
-        ht_i = jax.lax.bitcast_convert_type(ht, jnp.int32)
-        is_k_i = is_k.astype(jnp.int32)
-        pivrow = jax.lax.bitcast_convert_type(
-            jnp.sum(ht_i * is_k_i[:, None, :], axis=2), jnp.uint32
-        )
-        pivs = jax.lax.bitcast_convert_type(
-            jnp.sum(jax.lax.bitcast_convert_type(s, jnp.int32) * is_k_i, axis=1),
-            jnp.uint32,
-        )
-        elim = col * (u1 - is_k) * do[:, None]
-        ht_out[:] = jnp.where(elim[:, None, :] > u0, ht ^ pivrow[:, :, None], ht)
-        s_out[:] = jnp.where(elim > u0, s ^ pivs[:, None], s)
-        piv_out[:] = jnp.where((is_k * do[:, None]) > u0, j, pivcol)
-        return active
-
-    # static fori: the per-lane `active` flags make exhausted lanes
-    # no-ops, and a tile-level while_loop early exit measured 25% SLOWER
-    # (2,467 vs 3,304 syndromes/s at per=0.2) — see _elim_kernel's note.
-    jax.lax.fori_loop(0, n, trip, jnp.full((bt,), 1, jnp.uint32))
+    init = (ht_ref[...], s_ref[...], jnp.full((mp,), n, jnp.int32),
+            jnp.bool_(True))
+    _, s, piv, _ = jax.lax.fori_loop(0, (n + 31) // 32, word_trip, init)
+    s_out[...] = s
+    piv_out[...] = piv
 
 
-def gf2_osd0_pallas(Ht, resid, bp_err, n, *, batch_tile=8, interpret=False):
-    """Batched OSD-0 elimination; returns the ``[B, n]`` correction.
+def _call(kernel, args, out_shapes, *, n, wp, mp, interpret):
+    def spec(a):  # one lane per program
+        return pl.BlockSpec((None, *a.shape[1:]),
+                            lambda i: (i,) + (0,) * (len(a.shape) - 1))
 
-    Args:
-      Ht: ``[B, W, m]`` uint32 transposed packed rows (sorted columns).
-      resid: ``[B, m]`` uint32 0/1 residual syndrome of ``bp_err``.
-      bp_err: ``[B, n]`` uint32 0/1 BP hard decisions (sorted order).
-      n: static column count.
-    """
-    B, W, m = Ht.shape
-    m_pad = ((m + 127) // 128) * 128
-    n_pad = ((n + 127) // 128) * 128
-    if m_pad != m:
-        Ht = jnp.pad(Ht, ((0, 0), (0, 0), (0, m_pad - m)))
-        resid = jnp.pad(resid, ((0, 0), (0, m_pad - m)))
-    bp_pad = bp_err.astype(jnp.uint32)
-    if n_pad != n:
-        bp_pad = jnp.pad(bp_pad, ((0, 0), (0, n_pad - n)))
-    bt = min(batch_tile, B)
-    while B % bt:
-        bt //= 2
-
-    kern = functools.partial(
-        _osd0_kernel, n=int(n), m_pad=int(m_pad), n_pad=int(n_pad)
-    )
-    _, s_fin, piv = pl.pallas_call(
-        kern,
-        grid=(B // bt,),
-        in_specs=[
-            pl.BlockSpec((bt, W, m_pad), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, m_pad), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, n_pad), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((bt, W, m_pad), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, m_pad), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, m_pad), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((B, W, m_pad), jnp.uint32),
-            jax.ShapeDtypeStruct((B, m_pad), jnp.uint32),
-            jax.ShapeDtypeStruct((B, m_pad), jnp.int32),
-        ),
+    B = args[0].shape[0]
+    return pl.pallas_call(
+        functools.partial(kernel, n=int(n), wp=wp, mp=mp),
+        grid=(B,),
+        in_specs=[spec(a) for a in args],
+        out_specs=tuple(spec(o) for o in out_shapes),
+        out_shape=out_shapes,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_num_warps(wp, mp),
+                                             num_stages=1),
         interpret=interpret,
-    )(Ht.astype(jnp.uint32), resid.astype(jnp.uint32), bp_pad)
-    # corr = bp_err with pivot columns reassigned from the residual
-    # (sentinel n indices are dropped by the scatter mode)
-    corr = bp_err.astype(jnp.uint32)
-    return jax.vmap(lambda c, p, sv: c.at[p].set(sv, mode="drop"))(
-        corr, piv[:, :m], s_fin[:, :m]
-    )
+        name=kernel.__name__.lstrip("_"),
+    )(*args)
 
 
-def gf2_eliminate_pallas(Ht, s, n, *, batch_tile=8, interpret=False):
+def _lane_parallel(fn, sharding_rule):
+    """Wrap ``fn`` (independent batch lanes) so that a batch-sharded
+    caller runs it on each device's own lanes.
+
+    XLA's partitioner cannot split a ``pallas_call``: left alone it would
+    gather the batch onto every device.  Here the partitioner is told
+    that the lanes are independent, so each device calls the kernel on
+    its shard and nothing crosses devices."""
+    wrapped = custom_partitioning(fn)
+
+    def partition(mesh, arg_shapes, result_shape):
+        spec = arg_shapes[0].sharding.spec
+        batch = spec[0] if len(spec) else None
+
+        def lanes(x):
+            return NamedSharding(mesh, P(batch, *(None,) * (len(x.shape) - 1)))
+
+        return (mesh, fn, jax.tree.map(lanes, result_shape),
+                tuple(lanes(a) for a in arg_shapes))
+
+    wrapped.def_partition(partition=partition, sharding_rule=sharding_rule)
+    return wrapped
+
+
+def _pad_state(Ht, s, n):
+    """Pad ``[B, W, m]`` / ``[B, m]`` to the power-of-two block as int32.
+
+    Zero rows are never chosen as pivots (their column bit is 0) and zero
+    words hold no columns, so padding changes no result."""
+    B, W, m = Ht.shape
+    wp, mp = _block_dims(n, m)
+    ht = jax.lax.bitcast_convert_type(Ht.astype(jnp.uint32), jnp.int32)
+    ht = jnp.pad(ht, ((0, 0), (0, wp - W), (0, mp - m)))
+    s = jnp.pad(s.astype(jnp.int32), ((0, 0), (0, mp - m)))
+    return ht, s, wp, mp
+
+
+def gf2_eliminate_pallas(Ht, s, n, *, interpret=False):
     """Batched Gauss–Jordan RREF of packed columns.
 
     Args:
@@ -226,40 +232,54 @@ def gf2_eliminate_pallas(Ht, s, n, *, batch_tile=8, interpret=False):
         of row i at ``[b, w, i]``; see ops/gf2.py::gf2_eliminate).
       s: ``[B, m]`` uint32 0/1 syndromes, co-transformed.
       n: static column count.
-      batch_tile: lanes per grid program (their n-trip loops share one
-        instruction stream, amortizing loop overhead).
 
     Returns ``(Ht' [B, W, m], s' [B, m], pivcol [B, m] int32)`` with
     ``pivcol[b, i]`` = row i's pivot column or the sentinel ``n``.
     """
     B, W, m = Ht.shape
-    m_pad = ((m + 127) // 128) * 128
-    if m_pad != m:
-        # zero rows can never be chosen as pivots (their column bit is 0)
-        Ht = jnp.pad(Ht, ((0, 0), (0, 0), (0, m_pad - m)))
-        s = jnp.pad(s, ((0, 0), (0, m_pad - m)))
-    bt = min(batch_tile, B)
-    while B % bt:
-        bt //= 2
+    ht, sp, wp, mp = _pad_state(Ht, s, n)
 
-    kern = functools.partial(_elim_kernel, n=int(n), m_pad=int(m_pad))
-    ht2, s2, piv = pl.pallas_call(
-        kern,
-        grid=(B // bt,),
-        in_specs=[
-            pl.BlockSpec((bt, W, m_pad), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, m_pad), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((bt, W, m_pad), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, m_pad), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, m_pad), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((B, W, m_pad), jnp.uint32),
-            jax.ShapeDtypeStruct((B, m_pad), jnp.uint32),
-            jax.ShapeDtypeStruct((B, m_pad), jnp.int32),
-        ),
-        interpret=interpret,
-    )(Ht.astype(jnp.uint32), s.astype(jnp.uint32))
-    return ht2[:, :, :m], s2[:, :m], piv[:, :m]
+    def run(ht, sp):
+        b = ht.shape[0]
+        return _call(
+            _elim_kernel, (ht, sp),
+            (jax.ShapeDtypeStruct((b, wp, mp), jnp.int32),
+             jax.ShapeDtypeStruct((b, mp), jnp.int32),
+             jax.ShapeDtypeStruct((b, mp), jnp.int32)),
+            n=n, wp=wp, mp=mp, interpret=interpret,
+        )
+
+    ht2, s2, piv = _lane_parallel(run, "b w m, b m -> b w m, b m, b m")(ht, sp)
+    ht2 = jax.lax.bitcast_convert_type(ht2[:, :W, :m], jnp.uint32)
+    return ht2, s2[:, :m].astype(jnp.uint32), piv[:, :m]
+
+
+def gf2_osd0_pallas(Ht, resid, bp_err, n, *, interpret=False):
+    """Batched OSD-0 elimination; returns the ``[B, n]`` correction.
+
+    Args:
+      Ht: ``[B, W, m]`` uint32 transposed packed rows (sorted columns).
+      resid: ``[B, m]`` uint32 0/1 residual syndrome of ``bp_err``.
+      bp_err: ``[B, n]`` 0/1 BP hard decisions (sorted order).
+      n: static column count.
+    """
+    B, W, m = Ht.shape
+    ht, sp, wp, mp = _pad_state(Ht, resid, n)
+    bp = jnp.pad(bp_err.astype(jnp.int32), ((0, 0), (0, wp * 32 - n)))
+
+    def run(ht, sp, bp):
+        b = ht.shape[0]
+        return _call(
+            _osd0_kernel, (ht, sp, bp),
+            (jax.ShapeDtypeStruct((b, mp), jnp.int32),
+             jax.ShapeDtypeStruct((b, mp), jnp.int32)),
+            n=n, wp=wp, mp=mp, interpret=interpret,
+        )
+
+    s_fin, piv = _lane_parallel(run, "b w m, b m, b c -> b m, b m")(ht, sp, bp)
+    # corr = bp_err with pivot columns reassigned from the residual
+    # (sentinel n indices are dropped by the scatter mode)
+    corr = bp_err.astype(jnp.uint32)
+    return jax.vmap(lambda c, p, sv: c.at[p].set(sv, mode="drop"))(
+        corr, piv[:, :m], s_fin[:, :m].astype(jnp.uint32)
+    )

@@ -7,7 +7,6 @@ from .spmd import (
     sharded_mixed_decode,
     make_check_sharded_minsum_fn,
     make_check_sharded_sumproduct_fn,
-    make_qc_sharded_decode_fn,
 )
 
 __all__ = [
@@ -19,7 +18,6 @@ __all__ = [
     "sharded_mixed_decode",
     "make_check_sharded_minsum_fn",
     "make_check_sharded_sumproduct_fn",
-    "make_qc_sharded_decode_fn",
     "initialize_multihost",
     "global_mesh",
     "allreduce_counts",

@@ -1,10 +1,12 @@
 """Device-mesh helpers for SPMD decoding.
 
 The reference has no parallelism of any kind (its batch path is a serial
-loop, /root/reference/src/decoders/abstract_decoder.jl:35-39).  The TPU
-build's first-class strategy (SURVEY.md §5, §7): shard the syndrome batch
-axis across chips ('data'), optionally pairing it with a 'model' axis that
-shards the check/edge dimension of very large codes.
+loop, the reference's abstract_decoder.jl:35-39).  This package's
+strategy (SURVEY.md §5, §7): shard the syndrome batch axis across devices
+('data'), optionally pairing it with a 'model' axis that shards the
+check/edge dimension of very large codes.  The mesh is flat over
+``jax.devices()``: the cards of one host reach each other at the same
+rate, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Multi-host initialization and host-sharded FER accumulation.
 
-For pod-slice deployments: ``jax.distributed`` process group init, a
-global mesh spanning all hosts, per-host syndrome generation, and
+For multi-process deployments: ``jax.distributed`` process group init, a
+global mesh spanning all processes, per-host syndrome generation, and
 all-reduced failure counts.  Single-host (and test) environments pass
 through unchanged — everything degrades to the local mesh.
 """
@@ -24,9 +24,9 @@ __all__ = [
 def initialize_multihost(coordinator: str | None = None, num_processes: int | None = None, process_id: int | None = None):
     """Initialize jax.distributed when running under a multi-host launcher.
 
-    No-op when single-process (the common local case).  Under a TPU pod
-    launcher (GKE/ray/mpirun) the env provides the coordinator address and
-    ranks, so all arguments are optional.
+    No-op when single-process (the common local case).  Otherwise give
+    the coordinator address (``host:port``), the process count and this
+    process's rank.
     """
     if coordinator is None and num_processes is None:
         return  # single-host / launcher-managed: nothing to do

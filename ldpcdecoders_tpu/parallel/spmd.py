@@ -204,8 +204,7 @@ def _make_check_sharded_fn(
     # Per-shard var-major local adjacency: for every variable, the flat
     # indices of its edges *within this shard's* [m_loc, max_dc] message
     # block.  The per-variable partial sums then run as masked gathers
-    # (the framework's fast path) instead of a scatter-add, which
-    # measured ~40x slower on v5e.
+    # (the framework's fast path) instead of a scatter-add.
     m_loc = m_pad // D
     flat = graph.v2c_gather.astype(np.int64)  # [n, max_dv] into [m*max_dc]
     vmask = graph.var_mask
@@ -380,43 +379,3 @@ def make_check_sharded_sumproduct_fn(
         graph, per, max_iters, mesh, _sumproduct_rule(dtype),
         data_axis=data_axis, model_axis=model_axis, dtype=dtype,
     )
-
-
-def make_qc_sharded_decode_fn(decoder, mesh: Mesh, *, data_axis: str = "data"):
-    """Data-parallel wrapper for the fused QC Pallas decode.
-
-    GSPMD cannot partition a ``pallas_call`` custom call across devices,
-    so ``sharded_batch_decode`` (which relies on XLA's automatic
-    partitioning) does not apply to ``QCMinSumDecoder(backend='pallas')``.
-    This helper maps the whole-decode kernel per device shard with
-    ``shard_map`` instead: each device runs the VMEM-resident kernel on
-    its local batch slice — decoding is embarrassingly parallel, so no
-    collectives are inserted.
-
-    Returns a jitted ``syndromes [B, m] -> (err, conv, iters, llrs)``
-    with every output sharded on the batch axis.  ``B`` must be
-    divisible by (mesh data size x decoder.batch_tile).
-    """
-    spec_vec = P(data_axis)
-    spec_mat = P(data_axis, None)
-    mapped = shard_map(
-        decoder._decode_fn,
-        mesh=mesh,
-        in_specs=(spec_mat,),
-        out_specs=(spec_mat, spec_vec, spec_vec, spec_mat),
-        check_vma=False,
-    )
-    n_dev = int(mesh.shape[data_axis])
-    tile = getattr(decoder, "batch_tile", 1)
-
-    def decode(syndromes):
-        syndromes = jnp.asarray(syndromes)
-        B = syndromes.shape[0]
-        if B % (n_dev * tile):
-            raise ValueError(
-                f"batch {B} must be a multiple of data-mesh size ({n_dev}) "
-                f"x batch_tile ({tile})"
-            )
-        return mapped(syndromes)
-
-    return decode

@@ -143,7 +143,7 @@ def css_logical_operators(H_detect, H_stab) -> np.ndarray:
     where ``L`` — returned here as a ``[k, n]`` 0/1 array — is a basis
     of ``ker(H_stab)`` modulo ``rowspan(H_detect)`` (representatives of
     the *opposite*-type logical operators).  Both products are exact f32
-    MXU matmuls on TPU, so the evaluation harness verifies degeneracy
+    matmuls on the device, so the evaluation harness verifies degeneracy
     on-device with no host round trip (unlike the bit-packed host RREF
     reducer).  ``k`` equals the code's logical-qubit count.
     """

@@ -63,7 +63,7 @@ def syndromes_of(H, errors: np.ndarray) -> np.ndarray:
     Dense H routes through the threaded bit-packed C++ kernel
     (``native/gf2_host.cpp``) when the toolchain is available, else a
     float32 BLAS matmul (exact: per-check overlap counts are far below
-    2^24); the int64 path these replace was ~120x slower than the TPU
+    2^24); the int64 path these replace was ~120x slower than the device
     decode it was feeding and host-bound every FER sweep.
     """
     errors = np.asarray(errors)

@@ -138,8 +138,7 @@ def test_bp_batch_decode_async_matches_sync(medium_code):
 
 
 def test_bp_bfloat16_passes_reference_oracle(medium_code):
-    """The bf16 speed mode (half the HBM traffic of f32; measured +29%
-    edge-iters/s on v5e) must still satisfy the reference's statistical
+    """The bf16 speed mode (half the message bytes of f32) must still satisfy the reference's statistical
     contract: full recovery at per=0.01 (test_bp_decoder.jl:46-49)."""
     import jax.numpy as jnp
 

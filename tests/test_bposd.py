@@ -316,3 +316,31 @@ def test_osd_cs_decoder_consistent_and_no_worse(code, fused):
 def test_osd_method_validation(code):
     with pytest.raises(ValueError, match="osd_method"):
         lt.BeliefPropagationOSDDecoder(code, 0.1, 10, osd_method="bogus")
+
+
+@pytest.mark.gpu
+def test_osd_sweep_matches_cpu_on_gpu(gpu):
+    """The OSD-w candidate sweep on the card equals the CPU's on the same
+    eliminated systems (its 0/1 matmuls must be exact there too)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ldpcdecoders_tpu.ops.gf2 import gf2_eliminate, osdw_sweep, pack_bits
+
+    H = lt.parity_check_matrix(1000, 10, 9, rng=42)
+    m, n = H.shape
+    rng = np.random.default_rng(3)
+    B = 64
+    perms = np.stack([rng.permutation(n) for _ in range(B)])
+    Hb = H[:, perms].transpose(1, 0, 2).astype(np.uint32)
+    x = (rng.random((B, n)) < 0.2).astype(np.uint32)
+    syn = jnp.asarray((np.einsum("bmn,bn->bm", Hb, x) % 2).astype(np.uint32))
+    Ht = jnp.transpose(jax.vmap(pack_bits)(jnp.asarray(Hb)), (0, 2, 1))
+    elim = jax.jit(jax.vmap(lambda h, v: gf2_eliminate(h, v, n)))(Ht, syn)
+    bp = jnp.asarray((rng.random((B, n)) < 0.2).astype(np.uint32))
+    sweep = jax.jit(jax.vmap(lambda h, v, p, r, b: osdw_sweep(h, v, p, r, b, 4, n)))
+    args = (*elim, bp)
+    cpu = jax.devices("cpu")[0]
+    on_gpu = np.asarray(sweep(*args))
+    on_cpu = np.asarray(sweep(*(jax.device_put(a, cpu) for a in args)))
+    assert np.array_equal(on_gpu, on_cpu)

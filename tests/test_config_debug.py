@@ -92,13 +92,13 @@ def test_reference_exact_config_bposd_consistency():
 
 
 def test_config_forwards_use_pallas_to_bposd():
-    """An explicit use_pallas in the config must reach the bposd decoder
-    (None keeps the decoder's backend auto-detection)."""
+    """The config has no use_pallas knob: the bposd decoder it builds
+    chooses the GF(2) elimination kernel from the code's shape."""
     import ldpcdecoders_tpu as lt
     from ldpcdecoders_tpu.config import DecoderConfig
 
     H = lt.parity_check_matrix(48, 6, 3, rng=3)
-    dec = DecoderConfig(kind="bposd", use_pallas=False).build(H)
-    assert dec.use_pallas is False
-    dec = DecoderConfig(kind="bposd", use_pallas=True).build(H)
-    assert dec.use_pallas is True
+    with pytest.raises(TypeError, match="use_pallas"):
+        DecoderConfig(kind="bposd", use_pallas=True)
+    dec = DecoderConfig(kind="bposd").build(H)
+    assert dec.osd_kernel is True

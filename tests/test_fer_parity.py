@@ -7,7 +7,7 @@ re-derives a small live slice so the assertion is not artifact-only.
 
 Round 4 tightened the statistics 5x (1000 trials/point, VERDICT r3
 item 8): measured max deltas are 0.001 (bp/bposd — one near-tie trial
-in 1000 where the TPU's f32 message passing and the f64 golden settle
+in 1000 where the device's f32 message passing and the f64 golden settle
 on different syndrome-consistent solutions), 0.003 (bitflip RNG tie
 streams), 0.005 (bpots float-tie bias picks); tolerances sit just
 above (0.002 / 0.01 / 0.01 vs the old 0 / 0.05 / 0.02 at 200 trials).

@@ -1,8 +1,8 @@
 """Device-memory budget model (utils/hbm.py, VERDICT r4 item 7).
 
-The round-4 OOM guards were hardcoded v5e folklore; these tests pin the
-replacement: caps derive from a (fake) device budget, so a hypothetical
-smaller or larger chip picks correct values without code edits.
+The round-4 OOM guards were hardcoded folklore from one accelerator;
+these tests pin the replacement: caps derive from a (fake) device budget,
+so a smaller or larger device picks correct values without code edits.
 """
 
 import numpy as np
@@ -28,7 +28,7 @@ def test_explicit_bytes_win_over_detection():
 
 
 def test_env_override(monkeypatch):
-    monkeypatch.setenv("LDPC_TPU_HBM_GB", "2.5")
+    monkeypatch.setenv("LDPC_DEVICE_MEMORY_GB", "2.5")
     assert device_hbm_bytes() == int(2.5e9)
 
 
@@ -92,3 +92,38 @@ def test_staged_caps_follow_fake_device():
 def test_tiny_budget_keeps_floor():
     _, g = _graph()
     assert max_lanes_for(g, hbm_bytes=1000, lo=32) == 32
+
+
+class _FakeDevice:
+    def __init__(self, stats, platform="gpu", kind="NVIDIA H100 80GB HBM3"):
+        self.platform, self.device_kind, self._stats = platform, kind, stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_gpu_budget_is_bytes_limit(monkeypatch):
+    """On a GPU the budget is the runtime's bytes_limit (JAX preallocates
+    75% of an H100's 80 GB), and the staged caps follow from it: the
+    bb144 R=6 DEM's stage-0 batch reaches its 8192 ceiling and the
+    six-member bf16 deep bucket 2048 lanes."""
+    monkeypatch.delenv("LDPC_DEVICE_MEMORY_GB", raising=False)
+    dev = _FakeDevice({"bytes_limit": int(0.75 * 80e9), "bytes_in_use": 0})
+    assert device_hbm_bytes(dev) == int(0.75 * 80e9)
+
+    class G:  # shape-only stand-in for the bb144 R=6 DEM graph
+        n, m, max_dv, max_dc = 31648, 864, 12, 294
+
+    assert max_lanes_for(G, device=dev, fraction=0.85, lo=256, hi=8192) == 8192
+    deep = max_lanes_for(G, dtype_bytes=2, device=dev, fraction=0.45,
+                         lo=32, hi=16384)
+    assert deep == 16384 and deep // 6 >= 2048
+
+
+def test_gpu_without_bytes_limit_raises(monkeypatch):
+    monkeypatch.delenv("LDPC_DEVICE_MEMORY_GB", raising=False)
+    for stats in ({}, None, {"bytes_limit": 0}):
+        with pytest.raises(RuntimeError, match="no memory limit"):
+            device_hbm_bytes(_FakeDevice(stats))
+    # the CPU keeps its host-RAM share and needs no stats
+    assert device_hbm_bytes(_FakeDevice(None, platform="cpu", kind="cpu")) > 0

@@ -162,34 +162,6 @@ def test_check_sharded_sumproduct(code):
     assert (err[conv].astype(bool) == errs[conv]).all(axis=1).mean() > 0.8
 
 
-def test_qc_sharded_pallas_decode_matches_unsharded():
-    """The fused QC kernel data-shards via shard_map (GSPMD can't split a
-    pallas_call); outputs must equal the single-device kernel's."""
-    import ldpcdecoders_tpu as lt
-    from ldpcdecoders_tpu.parallel import make_mesh, make_qc_sharded_decode_fn
-
-    base = lt.random_qc_base_matrix(6, 3, 2, 16, rng=5)
-    H = lt.qc_lift(base, 16)
-    dec = lt.QCMinSumDecoder(
-        base, 16, 0.04, 12, schedule="layered", backend="pallas",
-        interpret=True, batch_tile=2,
-    )
-    rng = np.random.default_rng(3)
-    B = 16  # 8 devices x batch_tile 2
-    errs = (rng.random((B, dec.n)) < 0.03).astype(np.int8)
-    syn = ((errs @ H.T) % 2).astype(np.int8)
-    mesh = make_mesh(8)
-    fn = make_qc_sharded_decode_fn(dec, mesh)
-    es, cs, its, ls = jax.block_until_ready(fn(syn))
-    eu, cu, itu, auxu, _ = dec.batch_decode_detailed(syn)
-    assert np.array_equal(np.asarray(es), np.asarray(eu))
-    assert np.array_equal(np.asarray(cs), np.asarray(cu))
-    assert np.array_equal(np.asarray(its), np.asarray(itu))
-    np.testing.assert_allclose(np.asarray(ls), np.asarray(auxu["llrs"]))
-    with pytest.raises(ValueError, match="multiple of"):
-        fn(syn[:10])
-
-
 def test_sharded_mixed_decode():
     """Mixed-channel decode sharded over the batch axis: results match
     the unsharded decoder exactly."""

@@ -87,7 +87,7 @@ def test_peeling_validation_and_sparse(code):
 def test_thresholds_bracket_theory():
     """The decoder transitions where coding theory says it must: the
     (3,6)-regular BEC peeling threshold is eps*=0.4294 and the ML
-    threshold 0.4882 (capacity at rate 1/2 is 0.5).  TPU artifact with
+    threshold 0.4882 (capacity at rate 1/2 is 0.5).  Artifact with
     tight brackets at n=2400: benchmarks/results/erasure_threshold_r2.json."""
     H = lt.parity_check_matrix(600, 6, 3, rng=0)
     ml = ErasurePeelingDecoder(H)

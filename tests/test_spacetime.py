@@ -547,7 +547,7 @@ def test_qc_layered_inner_hosts_bicycle_spacetime():
     detector records syndrome-consistently."""
     R, per, q = 3, 0.01, 0.015
     dec = SpaceTimeDecoder.for_bicycle(
-        "bb72", "x", R, per, 60, meas_error_rate=q, backend="xla",
+        "bb72", "x", R, per, 60, meas_error_rate=q,
         schedule="layered")
     # the injected inner spans the full space-time model
     assert (dec.inner.m, dec.inner.n) == dec.A.shape
@@ -575,8 +575,6 @@ def test_qc_layered_inner_hosts_bicycle_spacetime():
 
 def test_qc_layered_inner_rejects_bad_blocks():
     with pytest.raises(ValueError, match="block must be"):
-        SpaceTimeDecoder.for_bicycle("bb72", "y", 2, 0.01, 10,
-                                     backend="xla")
+        SpaceTimeDecoder.for_bicycle("bb72", "y", 2, 0.01, 10)
     with pytest.raises(ValueError, match="unknown BB code"):
-        SpaceTimeDecoder.for_bicycle("bb999", "x", 2, 0.01, 10,
-                                     backend="xla")
+        SpaceTimeDecoder.for_bicycle("bb999", "x", 2, 0.01, 10)

@@ -1,6 +1,6 @@
 """Prototype: batch-LAST min-sum layout for wide detector models.
 
-The slot-major layout puts the node axis in TPU lanes; on the bb144
+The slot-major layout makes the node axis minor; on the bb144
 circuit DEM the per-iteration gather then materializes batch-minor
 ([dc*m, B]) and XLA inserts a full transpose copy to the node-minor
 elementwise layout — measured 4x below the flagship edge-iteration
